@@ -1,0 +1,18 @@
+from ray_tpu_torch.models.convert import init_params, params_from_flax
+from ray_tpu_torch.models.generate import Generator, SamplingParams
+from ray_tpu_torch.models.llama import (
+    LLAMA2_7B,
+    LLAMA2_13B,
+    LLAMA3_8B,
+    TINY,
+    LlamaConfig,
+    LlamaModel,
+    PagedKVCache,
+    init_kv_caches,
+)
+
+__all__ = [
+    "LlamaConfig", "LlamaModel", "LLAMA2_7B", "LLAMA2_13B", "LLAMA3_8B",
+    "TINY", "PagedKVCache", "init_kv_caches", "init_params",
+    "params_from_flax", "Generator", "SamplingParams",
+]

@@ -1,0 +1,109 @@
+"""The paged decode CUDA kernels against their plain PyTorch versions, on
+the card. Every test here needs a CUDA device and skips without one.
+The file imports neither jax nor ray_tpu, so it runs where only the port
+is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ray_tpu_torch.ops import paged_attention as pa  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# f32 as the JAX package's paged tests; bf16/f16 one or two output ulps.
+TOLERANCES = [pytest.param(torch.float32, 2e-4, id="f32"),
+              pytest.param(torch.bfloat16, 2e-2, id="bf16"),
+              pytest.param(torch.float16, 2e-3, id="f16")]
+# (H, Hkv, D, page): MHA, the LLAMA3_8B engine shape, MQA over two
+# chunks per page, a page that is not a power of two, and a group large
+# enough that the chunk shrinks to fit shared memory.
+SHAPES = [(8, 8, 32, 8), (32, 8, 128, 64), (8, 1, 256, 128), (12, 4, 16, 48),
+          (64, 1, 256, 128)]
+NP = 4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(dev, dtype, H, Hkv, D, page):
+    g = torch.Generator(device=dev).manual_seed(0)
+    lengths = [1, page, page + 1, NP * page - 1, NP * page, NP * page + 5]
+    B, P = len(lengths), len(lengths) * NP + 1
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    k_pool, v_pool, q = randn(P, Hkv, page, D), randn(P, Hkv, page, D), \
+        randn(B, H, D)
+    perm = torch.randperm(P, generator=g, device=dev).tolist()
+    rows = []
+    for length in lengths:
+        own = [perm.pop() for _ in range(min(-(-length // page), NP))]
+        rows.append((own + [own[-1]] * NP)[:NP])
+    tables = torch.tensor(rows, dtype=torch.int32, device=dev)
+    return q, k_pool, v_pool, tables, torch.tensor(lengths, dtype=torch.int32,
+                                                   device=dev)
+
+
+@pytest.mark.parametrize("dtype,tol", TOLERANCES)
+@pytest.mark.parametrize("H,Hkv,D,page", SHAPES)
+@pytest.mark.parametrize("fused_heads", [False, True])
+def test_batch_kernel_matches_plain(cuda, dtype, tol, H, Hkv, D, page,
+                                    fused_heads):
+    args = _inputs(cuda, dtype, H, Hkv, D, page)
+    key = ("paged_decode_attention_batch_fused" if fused_heads
+           else "paged_decode_attention_batch")
+    before = pa.launch_counts[key]
+    out = pa.paged_decode_attention_batch(*args, fused_heads=fused_heads)
+    want = pa.paged_decode_attention_batch_reference(*args)
+    torch.cuda.synchronize()
+    assert pa.launch_counts[key] == before + 1
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_single_sequence_kernel_matches_plain(cuda):
+    q, k_pool, v_pool, tables, lengths = _inputs(cuda, torch.float32,
+                                                 32, 8, 128, 64)
+    before = pa.launch_counts["paged_decode_attention"]
+    for b in range(q.shape[0]):
+        out = pa.paged_decode_attention(q[b], k_pool, v_pool, tables[b],
+                                        lengths[b])
+        want = pa.paged_decode_attention_reference(q[b], k_pool, v_pool,
+                                                   tables[b], lengths[b])
+        torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+    torch.cuda.synchronize()
+    assert pa.launch_counts["paged_decode_attention"] == before + q.shape[0]
+
+
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    q, k_pool, v_pool, tables, lengths = _inputs(cuda, torch.float32,
+                                                 8, 8, 32, 8)
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_decode_attention_batch(q, k_pool, v_pool, tables.long(),
+                                        lengths)
+    with pytest.raises(ValueError, match="dtype"):
+        pa.paged_decode_attention_batch(q.double(), k_pool.double(),
+                                        v_pool.double(), tables, lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_decode_attention_batch(q.transpose(0, 1).contiguous()
+                                        .transpose(0, 1), k_pool, v_pool,
+                                        tables, lengths)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pa.paged_decode_attention_batch(q[..., :20].contiguous(),
+                                        k_pool[..., :20].contiguous(),
+                                        v_pool[..., :20].contiguous(),
+                                        tables, lengths)
+    # a contiguous view one float past an aligned allocation
+    unaligned = torch.empty(k_pool.numel() + 1, device=cuda)[1:].view(
+        k_pool.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        pa.paged_decode_attention_batch(q, unaligned, v_pool, tables, lengths)

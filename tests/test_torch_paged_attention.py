@@ -1,0 +1,134 @@
+"""The port's paged decode attention against the JAX package's kernels.
+
+The JAX kernels run in Pallas interpret mode on the CPU, as their own
+tests run them; the port runs its plain PyTorch versions, which its CUDA
+kernel is held against on the card (chip_smoke.py). Inputs come from a
+seeded numpy generator. Tolerance 2e-4, as tests/test_paged_attention.py.
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from ray_tpu.ops import paged_attention as jpa  # noqa: E402
+from ray_tpu_torch.ops import paged_attention as tpa  # noqa: E402
+
+PAGE, D, NP = 8, 32, 5
+LENGTHS = [1, 7, 16, 37, NP * PAGE]   # the last fills the whole table
+HEADS = [pytest.param(8, 8, id="mha"), pytest.param(8, 4, id="gqa")]
+
+
+def _inputs(H, Hkv, seed=0):
+    """A shuffled pool holding noise everywhere (so a page read past the
+    length would show), tables padded with each sequence's last page."""
+    rng = np.random.default_rng(seed)
+    B, pool_pages = len(LENGTHS), len(LENGTHS) * NP + 3
+    k_pool = rng.standard_normal((pool_pages, Hkv, PAGE, D)).astype(np.float32)
+    v_pool = rng.standard_normal((pool_pages, Hkv, PAGE, D)).astype(np.float32)
+    free = list(rng.permutation(pool_pages))
+    tables = np.zeros((B, NP), np.int32)
+    for b, length in enumerate(LENGTHS):
+        own = [int(free.pop()) for _ in range(-(-length // PAGE))]
+        tables[b] = (own + [own[-1]] * NP)[:NP]
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    return q, k_pool, v_pool, tables, np.asarray(LENGTHS, np.int32)
+
+
+@pytest.mark.parametrize("H,Hkv", HEADS)
+@pytest.mark.parametrize("fused_heads", [False, True])
+def test_batch_matches_jax(H, Hkv, fused_heads):
+    """K3 (fused_heads=False) and K4 (fused_heads=True)."""
+    arrays = _inputs(H, Hkv)
+    want = jpa.paged_decode_attention_batch(
+        *map(jnp.asarray, arrays), fused_heads=fused_heads)
+    got = tpa.paged_decode_attention_batch(
+        *map(torch.from_numpy, arrays), fused_heads=fused_heads)
+    assert got.shape == (len(LENGTHS), H, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("H,Hkv", HEADS)
+def test_single_sequence_matches_jax(H, Hkv):
+    """K2, vmapped over the sequences on the JAX side as its tests do."""
+    q, k_pool, v_pool, tables, lengths = _inputs(H, Hkv, seed=1)
+    want = jax.vmap(jpa.paged_decode_attention,
+                    in_axes=(0, None, None, 0, 0))(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(tables), jnp.asarray(lengths))
+    kp, vp = torch.from_numpy(k_pool), torch.from_numpy(v_pool)
+    for b in range(len(LENGTHS)):
+        got = tpa.paged_decode_attention(
+            torch.from_numpy(q[b]), kp, vp, torch.from_numpy(tables[b]),
+            torch.tensor(lengths[b]))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[b]),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_page_allocator_matches_jax():
+    ops = [("allocate", "a", 40), ("allocate", "b", 17), ("allocate", "a", 70),
+           ("table", "a", 8), ("free", "b", 0), ("allocate", "c", 33),
+           ("table", "c", 4), ("table", "missing", 3), ("allocate", "d", 200),
+           ("free", "a", 0), ("allocate", "d", 64), ("table", "d", 6)]
+    ja, ta = jpa.PageAllocator(12, 16), tpa.PageAllocator(12, 16)
+    for op, seq, n in ops:
+        results = []
+        for alloc in (ja, ta):
+            try:
+                results.append(getattr(alloc, op)(seq, n) if op != "free"
+                               else alloc.free(seq))
+            except MemoryError:
+                results.append("MemoryError")
+        want, got = results
+        if op == "table":
+            assert got.dtype == torch.int32 and got.device.type == "cpu"
+            want, got = np.asarray(want).tolist(), got.tolist()
+        assert got == want, (op, seq, n)
+        assert ta.free_pages == ja.free_pages
+
+
+def test_import_loads_no_jax_and_no_cuda():
+    code = (
+        "import sys, torch\n"
+        "import ray_tpu_torch.serve.llm, ray_tpu_torch.models, "
+        "ray_tpu_torch.ops\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ray_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from ray_tpu_torch.models import TINY, Generator, init_params
+    from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
+
+    params = {}  # each raises while resolving its device, before the weights
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLMEngine(TINY, params, max_len=64, page_size=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLMServer(TINY, params, max_len=64, page_size=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Generator(TINY, params, batch=1, max_len=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(TINY, seed=0)
+
+
+def test_cuda_wrappers_refuse_other_devices():
+    """A tensor that is on neither the CPU nor a CUDA device is refused,
+    never sent to the plain version."""
+    q, k_pool, v_pool, tables, lengths = (
+        torch.from_numpy(a).to("meta") for a in _inputs(8, 4))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tpa.paged_decode_attention_batch(q, k_pool, v_pool, tables, lengths)
+    assert tpa.launch_counts["paged_decode_attention_batch"] == 0
