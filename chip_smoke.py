@@ -29,6 +29,32 @@ Phases, in order; a failure in any of them ends the run with an error:
              (temperature 0.8, top-k 50, top-p 0.9), 32 new tokens each,
              sent together. Launch counts are set to 0 just before the
              requests and read just after them.
+5. flash   - the flash attention kernels (forward; backward = delta
+             pre-pass, dK/dV and dQ kernels) against their plain
+             versions: f32 and bf16, causal or not, D in {64, 128}, S in
+             {1, 129, 2048}, one Sq != Sk case and one kv_valid_len case
+             (tolerances 2e-5 forward / 1e-4 grads in f32; in bf16 each
+             tensor is held to |err| <= 2^-6 |ref| + rms(ref) / 32, see
+             bf16_err), then the training shape (B 2, H 16, S 2048, D 128,
+             causal, bf16), timed as in phase 2; the library yardstick is
+             F.scaled_dot_product_attention (forward, and forward plus
+             backward), not used by the port.
+6. train parity - the training cell's widths at 2 layers, from
+             init_params(seed=0), AdamW steps of make_train_step on one
+             batch with attention="reference" (plain autograd) and with
+             "flash" (the kernels). In f32, 3 steps without remat and
+             under both remat policies: every loss within 1e-4 (relative)
+             of the reference's. In bf16 (the tensor-core kernels), 2
+             steps: losses within 2^-8 and each parameter's first-step
+             gradient within 2^-5 (relative norm) of the reference's. The
+             kernels launch as each setting implies.
+7. training - bench.py's accelerator config (1.2B: vocab 32000, d_model
+             2048, 16 layers, 16 heads, d_ff 8192, bf16, flash attention,
+             no remat), B 2, S 2048, tokens from default_rng(0), AdamW(3e-4,
+             weight_decay 0.01): one warm-up step, then 10 timed steps read
+             back once at the end. The loss must fall, and each flash
+             kernel run once per layer per step (counts set to 0 just
+             before the timed steps).
 
 Prints the kernels as one JSON line, the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -39,7 +65,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -51,10 +79,14 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch import _build
-from ray_tpu_torch.models import (LLAMA3_8B, Generator, SamplingParams,
-                                  init_kv_caches, init_params)
+from ray_tpu_torch.models import (LLAMA3_8B, Generator, LlamaConfig,
+                                  SamplingParams, count_flops_per_token,
+                                  cross_entropy_loss, init_kv_caches,
+                                  init_params)
+from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
+from ray_tpu_torch.train import adamw, init_train_state, make_train_step
 
 H, HKV, D, PAGE = 32, 8, 128, 64                 # LLAMA3_8B, engine page
 MAX_LEN, CHUNK, MAX_BATCH = 512, 8, 8
@@ -67,6 +99,18 @@ KERNELS = {  # launch-count key -> the TPU kernel it replaces
     "paged_decode_attention_batch_fused": "ray_tpu/ops/paged_attention.py:193",
 }
 ON_PATH = "paged_decode_attention_batch"
+FLASH_SOURCE = "ray_tpu_torch/ops/csrc/flash_attention.cu"
+FLASH_KERNELS = {  # launch-count key -> the TPU function it replaces
+    "flash_attention_forward": "ray_tpu/ops/attention.py:50",
+    "flash_attention_backward": "ray_tpu/ops/attention.py:231",
+}
+FLASH_F32_TOL = (2e-5, 1e-4)                    # forward, grads
+# bench.py's accelerator config (bench.py:279-284), and its batch.
+TRAIN_CFG = LlamaConfig(vocab_size=32000, d_model=2048, n_layers=16,
+                        n_heads=16, n_kv_heads=16, d_ff=8192,
+                        max_seq_len=2048, dtype=torch.bfloat16,
+                        attention="flash", remat=False)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 10
 # NVIDIA data sheets, dense: (memory B/s, f32 FLOP/s, bf16 FLOP/s).
 PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
          "SXM": (3.35e12, 67e12, 989e12)}
@@ -165,6 +209,22 @@ def bound_ms(lengths, B, dtype, card: str):
 def max_err(out, want, tol) -> float:
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     return (out.float() - want.float()).abs().max().item()
+
+
+def bf16_err(out, want):
+    """Holds a bf16 result to |err| <= 2^-6 |want| + max(rms(want) / 32,
+    1e-5) elementwise: kernel and plain version round P, dS and the
+    outputs to bf16 at the same places, so they differ where the f32 sum
+    order moves a value across a rounding boundary, one ulp (2^-8 to 2^-7
+    of the value) of the output or of a P or dS term; rms / 32 is about
+    four ulps at the tensor's typical size, for values that cancel to
+    near 0. Returns (max abs error, margin), the margin being the largest
+    ratio of error to allowance (1 at the limit)."""
+    out, want = out.float(), want.float()
+    rtol, atol = 2 ** -6, max(want.square().mean().sqrt().item() / 32, 1e-5)
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+    err = (out - want).abs()
+    return err.max().item(), (err / (rtol * want.abs() + atol)).max().item()
 
 
 def kernel_phase(card: str) -> dict:
@@ -359,6 +419,259 @@ def serving_phase(card: str, window=None) -> dict:
     return counts
 
 
+def flash_bound_ms(B, H, Sq, Sk, D, causal, dtype, card, backward):
+    """Least time for the call: its flops (4 per visible (query, key) pair
+    and head dim forward, 10 backward) at the card's peak for the input
+    type, or each input read and each output written once, the larger."""
+    mem_rate, f32_rate, bf16_rate = peaks(card)
+    item = torch.tensor([], dtype=dtype).element_size()
+    keys = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    flops = (10 if backward else 4) * B * H * keys * D
+    rows = 4 * (Sq + Sk) if backward else 2 * (Sq + Sk)  # q,k,v,o,dO,dq,dk,dv
+    nbytes = B * H * (rows * D * item + Sq * 4)          # and lse
+    t_bytes = nbytes / mem_rate
+    t_ops = flops / (f32_rate if dtype == torch.float32 else bf16_rate)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_inputs(dtype, B, H, Sq, Sk, D, seed=0):
+    """q, k, v, dO; v as the model hands it over, a (B, S, H, D) view."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(B, H, s, D, generator=g, device="cuda")
+                   .to(dtype) for s in (Sq, Sk, Sk, Sq))
+    return q, k, v.transpose(1, 2).contiguous().transpose(1, 2), do
+
+
+def flash_case(dtype, B, H, Sq, Sk, D, causal, kv_valid_len=None):
+    """Forward and backward kernels against the plain versions; returns
+    (inputs, residuals, max abs errors of out and of dq, dk, dv)."""
+    q, k, v, do = flash_inputs(dtype, B, H, Sq, Sk, D)
+    scale = 1 / math.sqrt(D)
+    out, lse = fa._flash_forward(q, k, v, scale, causal, 512, 512,
+                                 kv_valid_len)
+    want, want_lse = fa.flash_forward_reference(q, k, v, scale, causal, 512,
+                                                512, kv_valid_len)
+    res = (q, k, v, out, lse)
+    grads = fa._flash_backward(scale, causal, 512, 512, kv_valid_len, res, do)
+    want_grads = fa.flash_backward_reference(scale, causal, 512, 512,
+                                             kv_valid_len, res, do)
+    torch.cuda.synchronize()
+    max_err(lse, want_lse, 2e-5)
+    if dtype == torch.float32:
+        fwd_tol, grad_tol = FLASH_F32_TOL
+        err, grad_err = max_err(out, want, fwd_tol), max(
+            max_err(a, b, grad_tol) for a, b in zip(grads, want_grads))
+        margins = ""
+    else:
+        (err, m_out), *g = [bf16_err(a, b) for a, b in
+                            zip((out, *grads), (want, *want_grads))]
+        grad_err = max(e for e, _ in g)
+        margins = (f"; margins out {m_out:.3g}, dq/dk/dv "
+                   + "/".join(f"{m:.3g}" for _, m in g))
+    log(f"flash {str(dtype)[6:]} B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
+        f"causal={causal} kv_valid_len={kv_valid_len}: out err {err:.3g}, "
+        f"grad err {grad_err:.3g}{margins}")
+    return (q, k, v, do), res, err, grad_err
+
+
+def flash_kernel_phase(card: str) -> dict:
+    """Checks the flash kernels over the cases, then checks and times
+    them at the training shape; returns their rows for the kernels line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            for D in (64, 128):
+                for S in (1, 129, 2048):
+                    flash_case(dtype, 1, 2, S, S, D, causal)
+        flash_case(dtype, 1, 2, 200, 333, 128, True)
+        flash_case(dtype, 1, 2, 300, 333, 128, False, kv_valid_len=250)
+
+    B, H, S, D = TRAIN_B, TRAIN_CFG.n_heads, TRAIN_S, TRAIN_CFG.head_dim
+    dtype, scale = torch.bfloat16, 1 / math.sqrt(D)
+    (q, k, v, do), res, err, grad_err = flash_case(dtype, B, H, S, S, D, True)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def library_fwd_bwd():
+        qg.grad = kg.grad = vg.grad = None
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(do)
+
+    timer = Timer()
+    cases = {
+        "flash_attention_forward": (
+            err, lambda: fa._flash_forward(q, k, v, scale, True, 512, 512),
+            lambda: fa.flash_forward_reference(q, k, v, scale, True, 512, 512),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            False),
+        "flash_attention_backward": (
+            grad_err,
+            lambda: fa._flash_backward(scale, True, 512, 512, None, res, do),
+            lambda: fa.flash_backward_reference(scale, True, 512, 512, None,
+                                                res, do),
+            library_fwd_bwd, True),
+    }
+    rows = {}
+    for name, (err, kernel, plain, library, backward) in cases.items():
+        bound, by = flash_bound_ms(B, H, S, S, D, True, dtype, card, backward)
+        rows[name] = {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+                      "replaces": FLASH_KERNELS[name], "max_abs_err": err,
+                      "ms": timer(kernel), "plain_ms": timer(plain, reps=5),
+                      "bound_ms": bound, "bound_by": by,
+                      "library_ms": timer(library)}
+        log(f"kernel {name} B={B} H={H} S={S} D={D} causal bf16: "
+            + json.dumps({k: rows[name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}))
+    return rows
+
+
+def llama_loss(model, batch):
+    inp, tgt = batch
+    return cross_entropy_loss(model(inp), tgt)
+
+
+def train_batch(cfg, seed: int = 0):
+    """(inputs, targets) from default_rng(seed), as bench.py draws them."""
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (TRAIN_B, TRAIN_S + 1))).to("cuda")
+    return data[:, :-1], data[:, 1:]
+
+
+def parity_trainer(cfg, params, batch, n_steps, attention, remat=False,
+                   policy="dots"):
+    """n_steps AdamW steps of one trainer from a clone of `params`; checks
+    its flash launch counts and returns (losses, first-step grads)."""
+    step = make_train_step(llama_loss)
+    vcfg = dataclasses.replace(cfg, attention=attention, remat=remat,
+                               remat_policy=policy)
+    # Each trainer owns its tensors: from_params takes them over.
+    state = init_train_state(vcfg, adamw(3e-4, weight_decay=0.01),
+                             {n: t.clone() for n, t in params.items()})
+    fa.reset_launch_counts()
+    out = []
+    for i in range(n_steps):
+        state, metrics = step(state, batch)
+        out.append(metrics["loss"])
+        if i == 0:
+            grads = {n: p.grad.float()
+                     for n, p in state.model.named_parameters()}
+    counts = dict(fa.launch_counts)
+    flash = attention == "flash"
+    want = {"flash_attention_forward":
+            flash * cfg.n_layers * n_steps * (2 if remat else 1),
+            "flash_attention_backward": flash * cfg.n_layers * n_steps}
+    if counts != want:
+        raise AssertionError(f"{attention}, remat {remat} {policy}: "
+                             f"launches {counts}, expected {want}")
+    losses = torch.stack(out).tolist()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{attention}: losses {losses}")
+    return losses, grads
+
+
+def train_parity_phase():
+    """The flash trainers against the reference trainer: 3 steps in f32
+    under each remat setting, then 2 steps in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(TRAIN_CFG, n_layers=2, dtype=torch.float32)
+    params = init_params(cfg, seed=0)
+    batch = train_batch(cfg)
+    losses = {}
+    for attention, remat, policy in (("reference", False, "dots"),
+                                     ("flash", False, "dots"),
+                                     ("flash", True, "full"),
+                                     ("flash", True, "dots")):
+        name = f"{attention}, remat {policy if remat else 'off'}"
+        losses[name], _ = parity_trainer(cfg, params, batch, 3, attention,
+                                         remat, policy)
+    want = losses["reference, remat off"]
+    for name, got in losses.items():
+        if any(abs(a - b) > 1e-4 * abs(b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: losses {got} != reference {want}")
+    log("train parity f32: " + json.dumps(losses))
+
+    # bf16: the tensor-core kernels. Both sides run bf16 projections; the
+    # kernels round P and dS to bf16 where plain autograd keeps f32, up to
+    # 2^-9 of each term. A row of dS sums to 0, so dq = dS.K cancels the
+    # keys' common mean while the rounding errors do not: the q and k
+    # projections' grads move by a percent or two, hence 2^-5 in relative
+    # norm; the losses hold to 2^-8. A fault in one of the 32 q tiles of
+    # every (batch, head) moves a grad by about sqrt(1/32), 0.18; the
+    # flash phase holds each tile of each tensor.
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0)
+    want, want_grads = parity_trainer(cfg, params, batch, 2, "reference")
+    got, grads = parity_trainer(cfg, params, batch, 2, "flash")
+    rel = {n: ((grads[n] - g).norm() / g.norm()).item()
+           for n, g in want_grads.items()}
+    worst = max(rel, key=rel.get)
+    log("train parity bf16: " + json.dumps({
+        "reference": want, "flash": got,
+        "max_loss_rel": max(abs(a - b) / abs(b) for a, b in zip(got, want)),
+        "max_grad_rel": rel[worst], "max_grad_rel_param": worst}))
+    if any(abs(a - b) > 2 ** -8 * abs(b) for a, b in zip(got, want)):
+        raise AssertionError(f"bf16 flash losses {got} != reference {want}")
+    if rel[worst] > 2 ** -5:
+        raise AssertionError(f"bf16 flash grad of {worst} off by "
+                             f"{rel[worst]:.3g} of its norm")
+
+
+def training_phase(card: str, window=None, steps: int = TRAIN_STEPS) -> dict:
+    """Trains the 1.2B config; `window` (a context manager, such as a
+    torch.profiler.profile) wraps just the timed steps."""
+    cfg = TRAIN_CFG
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, adamw(3e-4, weight_decay=0.01), seed=0)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"training: {n_params / 1e9:.3f}B params, bf16, ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = train_batch(cfg)
+    step = make_train_step(llama_loss)
+    state, metrics = step(state, batch)     # warm-up
+    first = metrics["loss"].item()
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    with window or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        out = []
+        for _ in range(steps):
+            state, metrics = step(state, batch)
+            out.append(metrics["loss"])
+        losses = torch.stack(out).tolist()  # the one host read
+        dt = time.perf_counter() - t0
+    counts = dict(fa.launch_counts)
+    want = cfg.n_layers * steps
+    if not all(math.isfinite(x) for x in [first] + losses) \
+            or not losses[-1] < first:
+        raise AssertionError(f"loss did not fall: {first} then {losses}")
+    if any(counts[name] != want for name in FLASH_KERNELS):
+        raise AssertionError(f"flash launches {counts}, expected {want} each "
+                             f"({cfg.n_layers} layers x {steps} steps)")
+    tokens_per_s = TRAIN_B * TRAIN_S * steps / dt
+    log("training: " + json.dumps({
+        "card": card, "batch": TRAIN_B, "seq": TRAIN_S, "steps": steps,
+        "first_loss": first, "losses": losses, "ms_per_step": dt / steps * 1e3,
+        "tokens_per_s": tokens_per_s,
+        "mfu_6n_no_attention_flops": tokens_per_s * count_flops_per_token(cfg)
+        / peaks(card)[2], "launches": counts}))
+    return counts
+
+
+def run_phase(name: str, fn, *args):
+    """Runs one phase; logs its time and peak device memory, then frees
+    what it left in the allocator's cache."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = fn(*args)
+    log(f"{name}: {time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
@@ -370,20 +683,19 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s")
     log(_build.build_log)
 
-    t0 = time.perf_counter()
-    rows = kernel_phase(card)
-    log(f"kernels: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    parity_phase()
-    torch.cuda.empty_cache()
-    log(f"parity: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    counts = serving_phase(card)
-    log(f"serving: {time.perf_counter() - t0:.1f} s")
+    rows = run_phase("kernels", kernel_phase, card)
+    flash_rows = run_phase("flash", flash_kernel_phase, card)
+    run_phase("parity", parity_phase)
+    counts = run_phase("serving", serving_phase, card)
+    run_phase("train parity", train_parity_phase)
+    flash_counts = run_phase("training", training_phase, card)
 
     for name, row in rows.items():
         row["launches"] = counts[name]
-    print(json.dumps({"kernels": [rows[n] for n in KERNELS]}))
+    for name, row in flash_rows.items():
+        row["launches"] = flash_counts[name]
+    print(json.dumps({"kernels": [rows[n] for n in KERNELS]
+                      + [flash_rows[n] for n in FLASH_KERNELS]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

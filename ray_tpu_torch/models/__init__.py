@@ -8,6 +8,8 @@ from ray_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaModel,
     PagedKVCache,
+    count_flops_per_token,
+    cross_entropy_loss,
     init_kv_caches,
 )
 
@@ -15,4 +17,5 @@ __all__ = [
     "LlamaConfig", "LlamaModel", "LLAMA2_7B", "LLAMA2_13B", "LLAMA3_8B",
     "TINY", "PagedKVCache", "init_kv_caches", "init_params",
     "params_from_flax", "Generator", "SamplingParams",
+    "cross_entropy_loss", "count_flops_per_token",
 ]

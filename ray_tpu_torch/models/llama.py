@@ -1,4 +1,4 @@
-"""Llama-family decoder for inference. Port of ray_tpu/models/llama.py.
+"""Llama-family decoder. Port of ray_tpu/models/llama.py.
 
 Parameter names follow the flax tree (`layers.{i}.attn.q_proj.weight`
 for `layers_{i}/attn/q_proj/kernel`; see models/convert.py). Activations
@@ -8,8 +8,13 @@ head_dim), RMSNorm in f32 with f32 scales (flax's default param dtype).
 `Attention` has three branches, chosen by the cache it is given: the
 paged pool (batched single-token decode through the paged decode kernel),
 a dense per-sequence cache (prefill and the Generator's decode), and no
-cache (`attention="reference"` only; flash, ring and ulysses attention
-come with the training and sequence-parallel slices of the port).
+cache (training and full forwards: `attention="flash"` through the flash
+kernels, or `"reference"`; ring and ulysses attention come with the
+sequence-parallel slice of the port and raise).
+
+Training: `cfg.remat` recomputes each decoder layer in the backward
+(`torch.utils.checkpoint`), `cross_entropy_loss` is the logsumexp form,
+and `count_flops_per_token` gives 6N for MFU.
 """
 
 from __future__ import annotations
@@ -22,8 +27,18 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from ray_tpu_torch.ops.attention import mha_reference
+from ray_tpu_torch.ops.attention import (
+    flash_attention,
+    mha_reference,
+    ring_attention,
+    ulysses_attention,
+)
 from ray_tpu_torch.ops.paged_attention import paged_decode_attention_batch
 
 _NEG_INF = -1e30
@@ -50,9 +65,14 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # attention without a cache: "reference" (plain torch); "flash",
-    # "ring" and "ulysses" belong to later slices and raise.
+    # attention without a cache: "flash" (the CUDA kernels), "reference"
+    # (plain torch); "ring" and "ulysses" belong to a later slice and raise.
     attention: str = "flash"
+    remat: bool = True
+    # "full": recompute everything in the backward (least memory);
+    # "dots": keep the projections' matmul outputs and recompute the rest,
+    # as JAX's dots_with_no_batch_dims_saveable.
+    remat_policy: str = "dots"
     tie_embeddings: bool = False
 
     @property
@@ -68,7 +88,7 @@ LLAMA3_8B = LlamaConfig(vocab_size=128256, d_model=4096, n_layers=32,
                         rope_theta=500000.0, max_seq_len=8192)
 TINY = LlamaConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
                    n_kv_heads=4, d_ff=256, max_seq_len=256,
-                   dtype=torch.float32, attention="reference")
+                   dtype=torch.float32, attention="reference", remat=False)
 
 
 def rope_frequencies(head_dim: int, max_len: int, theta: float, device=None):
@@ -179,12 +199,12 @@ class Attention(nn.Module):
             p = torch.softmax(s, dim=-1)
             out = torch.einsum("bhqk,bhkd->bhqd", p,
                                v.float()).to(cfg.dtype)
-        elif cfg.attention in ("flash", "ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention={cfg.attention!r} without a KV cache is not "
-                "ported yet: flash attention comes with the training slice "
-                "(ROADMAP queue B, K1), ring and ulysses with the "
-                "sequence-parallel slice; use attention='reference'")
+        elif cfg.attention == "flash":
+            out = flash_attention(q, k, v, None, True)
+        elif cfg.attention == "ring":
+            out = ring_attention(q, k, v, axis="sp", causal=True)
+        elif cfg.attention == "ulysses":
+            out = ulysses_attention(q, k, v, axis="sp", causal=True)
         else:
             out = mha_reference(q, k, v, causal=True)
 
@@ -228,6 +248,24 @@ class DecoderLayer(nn.Module):
         return x
 
 
+# "dots": the outputs of the projections' matmuls (nn.Linear on a
+# (B, S, d) input runs one aten.mm) are saved, everything else, flash
+# attention included, is recomputed in the backward.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT_CONTEXT = {
+    "full": {},
+    "dots": {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)},
+}
+
+
 class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -250,10 +288,13 @@ class LlamaModel(nn.Module):
 
     @classmethod
     def from_params(cls, cfg: LlamaConfig, params: dict,
-                    device: torch.device) -> "LlamaModel":
-        """A model for inference that holds `params` (a state_dict, as
-        init_params or params_from_flax give it) on `device`, without a
-        second copy of tensors already there."""
+                    device: torch.device,
+                    trainable: bool = False) -> "LlamaModel":
+        """A model that holds `params` (a state_dict, as init_params or
+        params_from_flax give it) on `device`, without a second copy of
+        tensors already there: two models loaded from one dict share their
+        tensors. For inference by default; `trainable=True` gives
+        parameters that require grad, in train mode."""
         model = cls(cfg, device="meta")
         expected = model.state_dict()
         model.load_state_dict(
@@ -261,7 +302,7 @@ class LlamaModel(nn.Module):
              if k in expected else v for k, v in params.items()},
             strict=True, assign=True)
         model._set_rope(device)
-        return model.requires_grad_(False).eval()
+        return model.requires_grad_(trainable).train(trainable)
 
     def forward(self, tokens, positions=None, kv_caches=None):
         cfg = self.cfg
@@ -269,11 +310,17 @@ class LlamaModel(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         rope = (self.rope_cos, self.rope_sin)
         x = self.embed(tokens)
+        # Remat only where a backward follows, as nn.remat matters only
+        # under jax.grad.
+        remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
         new_caches = []
         for i, layer in enumerate(self.layers):
             if kv_caches is not None:
                 x, c = layer(x, positions, rope, kv_caches[i])
                 new_caches.append(c)
+            elif remat:
+                x = checkpoint(layer, x, positions, rope, use_reentrant=False,
+                               **_REMAT_CONTEXT[cfg.remat_policy])
             else:
                 x = layer(x, positions, rope)
         x = self.norm(x)
@@ -293,3 +340,27 @@ def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: int, device=None):
     return [(torch.zeros(shape, dtype=cfg.dtype, device=device),
              torch.zeros(shape, dtype=cfg.dtype, device=device), 0)
             for _ in range(cfg.n_layers)]
+
+
+def cross_entropy_loss(logits, targets, mask=None):
+    """Mean next-token negative log-likelihood, in the logsumexp form: no
+    normalized (B, S, V) array is kept beside the logits."""
+    l32 = logits.float()
+    lse = torch.logsumexp(l32, dim=-1)
+    picked = l32.gather(-1, targets.long()[..., None])[..., 0]
+    nll = lse - picked
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp(min=1)
+    return nll.mean()
+
+
+def count_flops_per_token(cfg: LlamaConfig) -> float:
+    """Forward+backward FLOPs per token as 6 x the parameter count; no
+    attention FLOPs are counted."""
+    n = (cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+         + cfg.n_layers * (
+             cfg.d_model * cfg.head_dim * (cfg.n_heads + 2 * cfg.n_kv_heads)
+             + cfg.n_heads * cfg.head_dim * cfg.d_model
+             + 3 * cfg.d_model * cfg.d_ff))
+    return 6.0 * n

@@ -1,27 +1,341 @@
-"""Plain attention. Port of `mha_reference` from ray_tpu/ops/attention.py.
+"""Attention: flash attention (forward and backward) and plain attention.
 
-The flash kernel of that module (and its backward) belongs to the
-training slice of the port and is not here yet.
+Port of ray_tpu/ops/attention.py. The Pallas forward `_flash_fwd_kernel`
+and the blockwise `lax.scan` backward become one CUDA source,
+`csrc/flash_attention.cu`: a forward kernel, and a backward of a dK/dV
+kernel and a dQ kernel (with a small pre-pass for delta). bf16 inputs with
+head dims up to 128 run on the tensor cores; f32 inputs run exact f32 FMAs.
+`flash_attention` is a `torch.autograd.Function` over them, as the JAX
+function is a `custom_vjp` whose residuals are (q, k, v, out, lse).
+
+Each kernel has a plain PyTorch version (`flash_forward_reference`,
+`flash_backward_reference`) that follows the JAX computation step by
+step: the forward's blocks and online softmax with the same guards, the
+backward's scan over q blocks. `_flash_forward` and `_flash_backward`
+run the plain version for tensors on the CPU and launch the kernels for
+tensors on a CUDA device, raising on anything the kernels do not take.
+`launch_counts` counts kernel launches per wrapper.
+
+`ring_attention` and `ulysses_attention` (sequence parallelism) belong to
+the port's sequence-parallel slice and raise until then.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
+from ray_tpu_torch import _build
+
 _NEG_INF = -1e30
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Kernel launches by wrapper; only a CUDA launch adds to a count.
+launch_counts = {
+    "flash_attention_forward": 0,
+    "flash_attention_backward": 0,
+}
+
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _kernels():
+    global _lib
+    if _lib is None:
+        lib = _build.load("flash_attention")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
+                                  i32, i32, i32, i32, i32, f32, i32, i32, ptr]
+        lib.flash_fwd.restype = i32
+        lib.flash_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                  ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                  f32, i32, i32, ptr]
+        lib.flash_bwd.restype = i32
+        lib.flash_error_string.argtypes = [i32]
+        lib.flash_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _scale(q, sm_scale):
+    return sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
 
 
 def mha_reference(q, k, v, sm_scale: float | None = None,
                   causal: bool = False):
     """q, k, v: (B, H, S, D). f32 softmax attention; a causal mask is
     aligned top-left. Returns q's dtype."""
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        * _scale(q, sm_scale)
     if causal:
         mask = torch.ones(s.shape[-2:], dtype=torch.bool,
                           device=s.device).tril()
         s = s.masked_fill(~mask, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def _fit_block(block: int, seq: int) -> int:
+    """The Pallas wrapper's block rule: the largest block <= the request
+    that divides the sequence, halving first; a prime length is one block."""
+    block = min(block, seq)
+    while block > 1 and seq % block:
+        block //= 2
+    if seq % block:
+        block = seq
+    return block
+
+
+def flash_forward_reference(q, k, v, sm_scale: float, causal: bool,
+                            block_q: int, block_k: int,
+                            kv_valid_len: int | None = None):
+    """The Pallas forward's arithmetic, block by block: for each q block,
+    an online softmax over the k blocks it needs, with the kernel's -1e30
+    guards, p rounded to v's dtype before P.V, and lse = -1e30 for rows
+    with no visible key. Returns (out in q's dtype, lse (B, H, Sq) f32)."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    bq, bk = _fit_block(block_q, Sq), _fit_block(block_k, Sk)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    masked = _NEG_INF / 2
+    for qs in range(0, Sq, bq):
+        qb = q[:, :, qs:qs + bq].float()
+        m = torch.full((B, H, bq, 1), _NEG_INF, device=q.device)
+        l = torch.zeros((B, H, bq, 1), device=q.device)
+        acc = torch.zeros((B, H, bq, D), device=q.device)
+        for ks in range(0, Sk, bk):
+            if causal and ks > qs + bq - 1:
+                continue  # wholly above the diagonal: skipped
+            kb = k[:, :, ks:ks + bk].float()
+            vb = v[:, :, ks:ks + bk]
+            s = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * sm_scale
+            q_pos = qs + torch.arange(bq, device=q.device)[:, None]
+            k_pos = ks + torch.arange(bk, device=q.device)[None, :]
+            if causal:
+                s = torch.where(q_pos >= k_pos, s, _NEG_INF)
+            if kv_valid_len is not None and kv_valid_len < Sk:
+                s = torch.where(k_pos < kv_valid_len, s, _NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            m_safe = torch.where(m_new <= masked, 0.0, m_new)
+            p = torch.exp(torch.where(s <= masked, -math.inf, s - m_safe))
+            alpha = torch.exp(torch.where(m <= masked, -math.inf,
+                                          m - m_safe))
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(v.dtype).float(), vb.float())
+            m = m_new
+        l_safe = torch.where(l == 0.0, 1.0, l)
+        out[:, :, qs:qs + bq] = (acc / l_safe).to(q.dtype)
+        lse[:, :, qs:qs + bq] = torch.where(
+            l == 0.0, _NEG_INF, m + torch.log(l_safe))[..., 0]
+    return out, lse
+
+
+def flash_backward_reference(sm_scale, causal, block_q, block_k,
+                             kv_valid_len, res, do):
+    """The JAX backward line by line: a loop over q blocks that rebuilds P
+    from the saved lse (no guards), dV += P^T dO with P rounded to v's
+    dtype, dS = P (dO V^T - delta) * scale rounded to v's dtype, dQ = dS K
+    per block, dK += dS^T Q; f32 sums. Returns (dq, dk, dv) in the input
+    dtypes."""
+    q, k, v, out, lse = res
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    delta = torch.einsum("bhsd,bhsd->bhs", out.float(), do.float())
+    bq = min(block_q, Sq)
+    if Sq % bq:
+        bq = Sq
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for qs in range(0, Sq, bq):
+        q_blk = q[:, :, qs:qs + bq].float()
+        do_blk = do[:, :, qs:qs + bq].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", q_blk, kf) * sm_scale
+        if causal:
+            q_pos = qs + torch.arange(bq, device=q.device)[:, None]
+            s = torch.where(q_pos >= k_pos, s, _NEG_INF)
+        if kv_valid_len is not None and kv_valid_len < Sk:
+            s = torch.where(k_pos < kv_valid_len, s, _NEG_INF)
+        p = torch.exp(s - lse[:, :, qs:qs + bq, None])
+        dv += torch.einsum("bhqk,bhqd->bhkd", p.to(v.dtype).float(), do_blk)
+        dp = torch.einsum("bhqd,bhkd->bhqk", do_blk, vf)
+        ds = (p * (dp - delta[:, :, qs:qs + bq, None]) * sm_scale).to(v.dtype)
+        ds = ds.float()
+        dq[:, :, qs:qs + bq] = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, q_blk)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(q, k, v, kv_valid_len, more=()):
+    """Raises unless the kernels take these tensors; returns kv_len."""
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"flash attention kernel needs CUDA or CPU tensors, got {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q, k, v must be (B, H, S, D) with k and v alike, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Sq, D = q.shape
+    if k.shape[:2] != (B, H) or k.shape[3] != D:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch, heads or head dim")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {q.dtype}; the kernels take "
+                         "float32 and bfloat16")
+    named = (("k", k), ("v", v)) + tuple(more)
+    for name, t in named:
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, q is "
+                             f"{q.dtype} on {q.device}")
+    if not 16 <= D <= 256 or D % 8:
+        raise ValueError(f"head dim {D} out of the kernels' range "
+                         "(16-256, a multiple of 8)")
+    for name, t in (("q", q),) + named:
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s last dim must be contiguous")
+    Sk = k.shape[2]
+    if Sq < 1 or Sk < 1:
+        raise ValueError("empty sequence")
+    kv_len = Sk if kv_valid_len is None else min(int(kv_valid_len), Sk)
+    if kv_len < 1:
+        raise ValueError(f"kv_valid_len {kv_valid_len} leaves no key: the "
+                         "kernels need at least one")
+    return kv_len
+
+
+def _strides(*tensors):
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _raise_on(lib, err, what):
+    if err:
+        raise RuntimeError(f"flash attention {what} kernel launch failed: "
+                           + lib.flash_error_string(err).decode())
+
+
+def _flash_forward(q, k, v, sm_scale: float, causal: bool,
+                   block_q: int, block_k: int,
+                   kv_valid_len: int | None = None):
+    """(out, lse (B, H, Sq) f32) for q (B, H, Sq, D), k and v (B, H, Sk, D).
+
+    The kernel takes (batch, head, seq) strides, so inputs need only a
+    contiguous last dim (the model hands v over as a transposed view).
+    Its tiles are its own: block_q and block_k set only the plain
+    version's blocks, which change nothing but the order of f32 sums."""
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, sm_scale, causal, block_q,
+                                       block_k, kv_valid_len)
+    kv_len = _check(q, k, v, kv_valid_len)
+    B, H, Sq, D = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = _kernels()
+    with torch.cuda.device(q.device):
+        err = lib.flash_fwd(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _strides(q, k, v), out.data_ptr(), lse.data_ptr(), B, H, Sq,
+            k.shape[2], D, float(sm_scale), int(causal), kv_len,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "forward")
+    launch_counts["flash_attention_forward"] += 1
+    return out, lse
+
+
+def _flash_backward(sm_scale, causal, block_q, block_k, kv_valid_len, res,
+                    do):
+    """(dq, dk, dv) from the residuals res = (q, k, v, out, lse) and the
+    output's gradient do, as the JAX `_flash_backward` takes them. Like
+    the forward, the kernels take (batch, head, seq) strides."""
+    q, k, v, out, lse = res
+    if q.device.type == "cpu":
+        return flash_backward_reference(sm_scale, causal, block_q, block_k,
+                                        kv_valid_len, res, do)
+    kv_len = _check(q, k, v, kv_valid_len, (("out", out), ("do", do)))
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if out.shape != q.shape or do.shape != q.shape \
+            or lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError("out and do must be shaped as q, and lse a "
+                         "contiguous (B, H, Sq) float32 tensor on q's device")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = _kernels()
+    with torch.cuda.device(q.device):
+        err = lib.flash_bwd(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), do.data_ptr(), _strides(q, k, v, out, do),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, Sq, Sk, D, float(sm_scale), int(causal),
+            kv_len, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "backward")
+    launch_counts["flash_attention_backward"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, causal, block_q, block_k):
+        scale = _scale(q, sm_scale)
+        out, lse = _flash_forward(q, k, v, scale, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        # autograd may hand over an expanded gradient (the backward of a
+        # sum): copy it only when its last dim is not contiguous.
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        scale, causal, block_q, block_k = ctx.args
+        dq, dk, dv = _flash_backward(scale, causal, block_q, block_k, None,
+                                     ctx.saved_tensors, do)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, sm_scale: float | None = None,
+                    causal: bool = False, block_q: int = 512,
+                    block_k: int = 512):
+    """Flash attention. q, k, v: (batch, heads, seq, head_dim); causal
+    masking is aligned top-left. Differentiable in q, k and v; the
+    backward recomputes P from the saved logsumexp."""
+    return _FlashAttention.apply(q, k, v, sm_scale, causal, block_q, block_k)
+
+
+def ring_attention(q, k, v, axis: str = "sp", *, causal: bool = False,
+                   sm_scale: float | None = None):
+    raise NotImplementedError(
+        "ring_attention is not ported yet: it comes with the port's "
+        "sequence-parallel slice (ROADMAP queue A, item 11)")
+
+
+def ulysses_attention(q, k, v, axis: str = "sp", *, causal: bool = False,
+                      sm_scale: float | None = None):
+    raise NotImplementedError(
+        "ulysses_attention is not ported yet: it comes with the port's "
+        "sequence-parallel slice (ROADMAP queue A, item 11)")

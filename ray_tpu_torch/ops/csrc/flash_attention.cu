@@ -1,0 +1,1078 @@
+// Flash attention for Hopper (sm_90a): the forward and its backward.
+//
+// Replaces, in ray_tpu/ops/attention.py:
+//   _flash_fwd_kernel / _flash_forward   (K1, the Pallas forward)
+//   _flash_backward                      (the lax.scan backward, which
+//                                         the JAX package runs as XLA ops)
+// and computes what they compute. Forward: s = (q . k) * sm_scale in f32,
+// masked to -1e30 above the causal diagonal (top-left aligned) and at
+// keys >= kv_len; an online softmax with the JAX guards (m_safe, p = 0
+// for masked scores, alpha = 0 while the running max is masked); p
+// rounded to the input type before P.V; out = acc / (l == 0 ? 1 : l) in
+// the input type, lse = m + log(l), or -1e30 where l == 0. Backward:
+// delta = rowsum(dO * O); P = exp(s - lse) recomputed with the same
+// masks and, as in JAX, no guards; dV = P^T dO with P rounded to the
+// input type; dS = P * (dO V^T - delta) * sm_scale rounded to the input
+// type; dQ = dS K, dK = dS^T Q. Every sum is f32; outputs are in the
+// input type.
+//
+// Block mapping. The TPU grid walks k-blocks in order and carries the
+// softmax state in VMEM scratch; here one thread block owns one
+// (batch, head, 64-row q tile) and loops over 64-key tiles itself, with
+// the running max, denominator and accumulator in registers. Causal
+// tiles wholly above the diagonal are never visited (the loop ends at
+// the last tile touching it), which is what `needed` and the clamped
+// kv_index do on the TPU. Any Sq and Sk: the last tile of each is
+// masked here, where the Pallas wrapper shrinks its blocks to divisors
+// of S (and a prime S to one block); tile sizes change only the order
+// of f32 sums. The backward has no atomics: a dK/dV kernel owns one key
+// tile and loops over the q tiles at and below the diagonal; a dQ kernel
+// owns one q tile and loops over key tiles. Both recompute P and dS, so
+// the backward does 7 tile products where a kernel with atomic dQ
+// updates would do 5; the result is deterministic. A small pre-pass
+// computes delta.
+//
+// Bound. At the training shapes (B 2, H 16, S 2048, D 128, causal,
+// bf16) the forward does 4 * B * H * D * sum(keys per row) = 3.44e10
+// flops: 34.8 us at 989 TFLOP/s, against 67 MB of q, k, v and out, 20 us
+// at 3.35 TB/s. It is bound by operations. The backward does about 2.5x
+// the forward's products, about 87 us. Two designs meet that bound:
+//
+// - bf16 with D <= 128 (the training path): every tile product on the
+//   tensor cores with mma.sync m16n8k16 (bf16 operands, f32 sums), from
+//   bf16 tiles in shared memory; four warps of 16 rows each, the score
+//   accumulators reused in registers as the operand of the next product
+//   (see namespace tc). Not yet wgmma, TMA or a pipeline over key tiles,
+//   which is what still separates it from the bound.
+// - f32 (and bf16 with D > 128): every product an f32 FMA on the CUDA
+//   cores, exact as the 2e-5 and 1e-4 tolerances of the JAX tests need
+//   (TF32 could not meet them), from f32 tiles in shared memory; 256
+//   threads as a 16 x 16 grid, each holding a 4 x 4 block of scores and
+//   4 rows x D/16 columns of accumulators in registers, so each
+//   shared-memory load feeds 2 to 4 FMAs; rows padded to an odd stride so
+//   that column reads hit distinct banks. Its bound is the 67 TFLOP/s of
+//   f32 FMA.
+//
+// Both schedule the longest causal q tiles first.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;  // a 16 x 16 grid: ty = tid / 16, tx = tid % 16
+constexpr float kNegInf = -1e30f;
+constexpr float kMasked = kNegInf / 2;  // the JAX guards' test: x <= -5e29
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x rounded to T and widened back, as `.astype(v.dtype)` before a product.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// Max and sum over the 16 lanes of a half warp: the threads of one row.
+__device__ __forceinline__ float row_max(float v) {
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float row_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// A (B, H, S, D) tensor with a contiguous last dim; strides in elements.
+struct View {
+  const void* ptr;
+  long long sb, sh, ss;
+};
+
+struct Args {
+  View q, k, v, o, dout;
+  const float* lse;  // (B, H, Sq) from the forward
+  float* delta;      // (B, H, Sq) scratch of the backward
+  void* out;         // forward outputs, contiguous
+  float* lse_out;
+  void* dq;  // backward outputs, contiguous
+  void* dk;
+  void* dv;
+  int B, H, Sq, Sk, D;
+  int kv_len;  // keys at or past kv_len are masked (Sk without a mask)
+  int causal;
+  float scale;
+};
+
+template <typename T>
+__device__ __forceinline__ const T* head(const View& t, int b, int h) {
+  return static_cast<const T*>(t.ptr) + b * t.sb + h * t.sh;
+}
+
+// Rows [r0, r0 + rows) of one head into dst (row stride ld) as f32;
+// rows at or past `limit` are zero.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
+                                          long long ss, int r0, int rows,
+                                          int limit, int D) {
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int r = i / D;
+    const int d = i - r * D;
+    const int gr = r0 + r;
+    dst[r * ld + d] = gr < limit ? to_float(src[gr * ss + d]) : 0.f;
+  }
+}
+
+// acc[i][j] = sum over d of a[(ty + 16 i) * ld + d] * b[(tx + 16 j) * ld + d]
+template <int RA, int RB>
+__device__ __forceinline__ void dot_rows(const float* a, const float* b,
+                                         int ld, int D, int ty, int tx,
+                                         float (&acc)[RA][RB]) {
+#pragma unroll
+  for (int i = 0; i < RA; ++i)
+#pragma unroll
+    for (int j = 0; j < RB; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float av[RA], bv[RB];
+#pragma unroll
+    for (int i = 0; i < RA; ++i) av[i] = a[(ty + 16 * i) * ld + d];
+#pragma unroll
+    for (int j = 0; j < RB; ++j) bv[j] = b[(tx + 16 * j) * ld + d];
+#pragma unroll
+    for (int i = 0; i < RA; ++i)
+#pragma unroll
+      for (int j = 0; j < RB; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ bool masked(const Args& a, int row, int col) {
+  return (a.causal && col > row) || col >= a.kv_len;
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one block per (q tile, head, batch).
+// ---------------------------------------------------------------------------
+
+template <typename T, int DMAX, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads, DMAX <= 128 ? 2 : 1)
+    flash_fwd_kernel(const Args a) {
+  constexpr int RQ = BQ / 16, RK = BK / 16, RD = DMAX / 16;
+  extern __shared__ float smem[];
+  const int D = a.D, ld = D + 1;
+  float* q_s = smem;             // BQ x ld
+  float* k_s = q_s + BQ * ld;    // BK x ld
+  float* v_s = k_s + BK * ld;    // BK x D
+  float* p_s = v_s + BK * D;     // BQ x (BK + 1)
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+  const T* q = head<T>(a.q, b, h);
+  const T* k = head<T>(a.k, b, h);
+  const T* v = head<T>(a.v, b, h);
+  const int q_end = min(q0 + BQ, a.Sq);
+  const int k_end = a.causal ? min(a.kv_len, q_end) : a.kv_len;
+
+  load_rows<T>(q_s, ld, q, a.q.ss, q0, BQ, a.Sq, D);
+
+  float m[RQ], l[RQ], acc[RQ][RD];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();  // the previous tile's k_s, v_s and p_s are read
+    load_rows<T>(k_s, ld, k, a.k.ss, k0, BK, a.Sk, D);
+    load_rows<T>(v_s, D, v, a.v.ss, k0, BK, a.Sk, D);
+    __syncthreads();
+
+    float s[RQ][RK];
+    dot_rows<RQ, RK>(q_s, k_s, ld, D, ty, tx, s);
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        const float x =
+            masked(a, row, k0 + tx + 16 * j) ? kNegInf : s[i][j] * a.scale;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = row_max(mx);
+      const float m_new = fmaxf(m[i], mx);
+      const float m_safe = m_new <= kMasked ? 0.f : m_new;
+      const float alpha = m[i] <= kMasked ? 0.f : expf(m[i] - m_safe);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        const float p = s[i][j] <= kMasked ? 0.f : expf(s[i][j] - m_safe);
+        sum += p;
+        p_s[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = round_to<T>(p);
+      }
+      sum = row_sum(sum);
+      l[i] = alpha * l[i] + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < RD; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float pc[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) pc[i] = p_s[(ty + 16 * i) * (BK + 1) + c];
+#pragma unroll
+      for (int j = 0; j < RD; ++j) {
+        const int d = tx + 16 * j;
+        if (d < D) {
+          const float vv = v_s[c * D + d];
+#pragma unroll
+          for (int i = 0; i < RQ; ++i) acc[i][j] = fmaf(pc[i], vv, acc[i][j]);
+        }
+      }
+    }
+  }
+
+  const size_t bh = (size_t)b * a.H + h;
+  T* out = static_cast<T*>(a.out) + bh * a.Sq * D;
+  float* lse = a.lse_out + bh * a.Sq;
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= a.Sq) continue;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+#pragma unroll
+    for (int j = 0; j < RD; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) out[(size_t)row * D + d] = from_float<T>(acc[i][j] / l_safe);
+    }
+    if (tx == 0) lse[row] = l[i] == 0.f ? kNegInf : m[i] + logf(l_safe);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward.
+// ---------------------------------------------------------------------------
+
+// delta = rowsum(dO * O) in f32: one warp per row of (B, H, Sq).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(
+    const Args a) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= (long long)a.B * a.H * a.Sq) return;  // the whole warp
+  const int s = (int)(row % a.Sq);
+  const int bh = (int)(row / a.Sq);
+  const T* o = head<T>(a.o, bh / a.H, bh % a.H) + s * a.o.ss;
+  const T* g = head<T>(a.dout, bh / a.H, bh % a.H) + s * a.dout.ss;
+  float sum = 0.f;
+  for (int d = lane; d < a.D; d += 32)
+    sum = fmaf(to_float(o[d]), to_float(g[d]), sum);
+  sum = warp_sum(sum);
+  if (lane == 0) a.delta[row] = sum;
+}
+
+// Rows [q0, q0 + BQ) of lse and delta into shared memory (0 past Sq).
+template <int BQ>
+__device__ __forceinline__ void load_row_stats(const Args& a, size_t bh,
+                                               int q0, float* lse_s,
+                                               float* delta_s) {
+  for (int r = threadIdx.x; r < BQ; r += kThreads) {
+    const int row = q0 + r;
+    lse_s[r] = row < a.Sq ? a.lse[bh * a.Sq + row] : 0.f;
+    delta_s[r] = row < a.Sq ? a.delta[bh * a.Sq + row] : 0.f;
+  }
+}
+
+// P and dS of one (q tile, key tile) pair, rows ty + 16 i, columns
+// tx + 16 j, from the scores s and dp = dO . V; rows past Sq give 0.
+template <typename T, int RQ, int RK>
+__device__ __forceinline__ void p_and_ds(const Args& a, int q0, int k0,
+                                         int tx, int ty, const float* lse_s,
+                                         const float* delta_s,
+                                         float (&s)[RQ][RK],
+                                         float (&dp)[RQ][RK]) {
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int r = ty + 16 * i;
+    const int row = q0 + r;
+#pragma unroll
+    for (int j = 0; j < RK; ++j) {
+      const float x =
+          masked(a, row, k0 + tx + 16 * j) ? kNegInf : s[i][j] * a.scale;
+      const float p = row < a.Sq ? expf(x - lse_s[r]) : 0.f;
+      s[i][j] = round_to<T>(p);
+      dp[i][j] = round_to<T>(p * (dp[i][j] - delta_s[r]) * a.scale);
+    }
+  }
+}
+
+// dK and dV: one block per (key tile, head, batch).
+template <typename T, int DMAX, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
+    const Args a) {
+  constexpr int RQ = BQ / 16, RK = BK / 16, RD = DMAX / 16;
+  extern __shared__ float smem[];
+  const int D = a.D, ld = D + 1;
+  float* k_s = smem;                  // BK x ld
+  float* v_s = k_s + BK * ld;         // BK x ld
+  float* q_s = v_s + BK * ld;         // BQ x ld
+  float* do_s = q_s + BQ * ld;        // BQ x ld
+  float* p_s = do_s + BQ * ld;        // BQ x (BK + 1)
+  float* ds_s = p_s + BQ * (BK + 1);  // BQ x (BK + 1)
+  float* lse_s = ds_s + BQ * (BK + 1);
+  float* delta_s = lse_s + BQ;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BK;
+  const size_t bh = (size_t)b * a.H + h;
+  const T* q = head<T>(a.q, b, h);
+  const T* dout = head<T>(a.dout, b, h);
+
+  float dk[RK][RD], dv[RK][RD];
+#pragma unroll
+  for (int i = 0; i < RK; ++i)
+#pragma unroll
+    for (int j = 0; j < RD; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  if (k0 < a.kv_len) {  // keys past kv_len have P = 0: no gradient
+    load_rows<T>(k_s, ld, head<T>(a.k, b, h), a.k.ss, k0, BK, a.Sk, D);
+    load_rows<T>(v_s, ld, head<T>(a.v, b, h), a.v.ss, k0, BK, a.Sk, D);
+    // Causal: rows above this tile's first key see none of its keys.
+    for (int q0 = a.causal ? k0 / BQ * BQ : 0; q0 < a.Sq; q0 += BQ) {
+      __syncthreads();  // the previous q tile is read
+      load_rows<T>(q_s, ld, q, a.q.ss, q0, BQ, a.Sq, D);
+      load_rows<T>(do_s, ld, dout, a.dout.ss, q0, BQ, a.Sq, D);
+      load_row_stats<BQ>(a, bh, q0, lse_s, delta_s);
+      __syncthreads();
+
+      float s[RQ][RK], dp[RQ][RK];
+      dot_rows<RQ, RK>(q_s, k_s, ld, D, ty, tx, s);
+      dot_rows<RQ, RK>(do_s, v_s, ld, D, ty, tx, dp);
+      p_and_ds<T, RQ, RK>(a, q0, k0, tx, ty, lse_s, delta_s, s, dp);
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < RK; ++j) {
+          const int at = (ty + 16 * i) * (BK + 1) + tx + 16 * j;
+          p_s[at] = s[i][j];
+          ds_s[at] = dp[i][j];
+        }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q: rows ty + 16 i of the key tile.
+#pragma unroll 2
+      for (int r = 0; r < BQ; ++r) {
+        float pr[RK], dsr[RK];
+#pragma unroll
+        for (int i = 0; i < RK; ++i) {
+          pr[i] = p_s[r * (BK + 1) + ty + 16 * i];
+          dsr[i] = ds_s[r * (BK + 1) + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < RD; ++j) {
+          const int d = tx + 16 * j;
+          if (d < D) {
+            const float g = do_s[r * ld + d];
+            const float x = q_s[r * ld + d];
+#pragma unroll
+            for (int i = 0; i < RK; ++i) {
+              dv[i][j] = fmaf(pr[i], g, dv[i][j]);
+              dk[i][j] = fmaf(dsr[i], x, dk[i][j]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  T* dk_out = static_cast<T*>(a.dk) + bh * a.Sk * D;
+  T* dv_out = static_cast<T*>(a.dv) + bh * a.Sk * D;
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= a.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < RD; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) {
+        dk_out[(size_t)key * D + d] = from_float<T>(dk[i][j]);
+        dv_out[(size_t)key * D + d] = from_float<T>(dv[i][j]);
+      }
+    }
+  }
+}
+
+// dQ: one block per (q tile, head, batch).
+template <typename T, int DMAX, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+    const Args a) {
+  constexpr int RQ = BQ / 16, RK = BK / 16, RD = DMAX / 16;
+  extern __shared__ float smem[];
+  const int D = a.D, ld = D + 1;
+  float* q_s = smem;                  // BQ x ld
+  float* do_s = q_s + BQ * ld;        // BQ x ld
+  float* k_s = do_s + BQ * ld;        // BK x ld
+  float* v_s = k_s + BK * ld;         // BK x ld
+  float* ds_s = v_s + BK * ld;        // BQ x (BK + 1)
+  float* lse_s = ds_s + BQ * (BK + 1);
+  float* delta_s = lse_s + BQ;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+  const size_t bh = (size_t)b * a.H + h;
+  const T* k = head<T>(a.k, b, h);
+  const T* v = head<T>(a.v, b, h);
+  const int q_end = min(q0 + BQ, a.Sq);
+  const int k_end = a.causal ? min(a.kv_len, q_end) : a.kv_len;
+
+  load_rows<T>(q_s, ld, head<T>(a.q, b, h), a.q.ss, q0, BQ, a.Sq, D);
+  load_rows<T>(do_s, ld, head<T>(a.dout, b, h), a.dout.ss, q0, BQ, a.Sq, D);
+  load_row_stats<BQ>(a, bh, q0, lse_s, delta_s);
+
+  float dq[RQ][RD];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < RD; ++j) dq[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();  // the previous key tile is read
+    load_rows<T>(k_s, ld, k, a.k.ss, k0, BK, a.Sk, D);
+    load_rows<T>(v_s, ld, v, a.v.ss, k0, BK, a.Sk, D);
+    __syncthreads();
+
+    float s[RQ][RK], dp[RQ][RK];
+    dot_rows<RQ, RK>(q_s, k_s, ld, D, ty, tx, s);
+    dot_rows<RQ, RK>(do_s, v_s, ld, D, ty, tx, dp);
+    p_and_ds<T, RQ, RK>(a, q0, k0, tx, ty, lse_s, delta_s, s, dp);
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < RK; ++j)
+        ds_s[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = dp[i][j];
+    __syncthreads();
+
+    // dQ += dS K: rows ty + 16 i of the q tile.
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float dsc[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) dsc[i] = ds_s[(ty + 16 * i) * (BK + 1) + c];
+#pragma unroll
+      for (int j = 0; j < RD; ++j) {
+        const int d = tx + 16 * j;
+        if (d < D) {
+          const float kv = k_s[c * ld + d];
+#pragma unroll
+          for (int i = 0; i < RQ; ++i) dq[i][j] = fmaf(dsc[i], kv, dq[i][j]);
+        }
+      }
+    }
+  }
+
+  T* dq_out = static_cast<T*>(a.dq) + bh * a.Sq * D;
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= a.Sq) continue;
+#pragma unroll
+    for (int j = 0; j < RD; ++j) {
+      const int d = tx + 16 * j;
+      if (d < D) dq_out[(size_t)row * D + d] = from_float<T>(dq[i][j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core kernels: bf16 inputs, D <= 128.
+//
+// The same three kernels with every tile product on mma.sync.m16n8k16
+// (bf16 operands, f32 accumulators). Four warps per block; each warp owns
+// 16 rows of the block's tile (q rows, or keys in the dK/dV kernel), so
+// a row's softmax state lives in the four lanes that hold it and row
+// reductions are two shuffles. Tiles sit in shared memory as bf16, rows
+// padded by 16 bytes so that fragment loads hit distinct banks. A score
+// tile's accumulators are, lane for lane, the A operand of the next
+// product (P.V, P^T dO, dS K, dS^T Q) once rounded to bf16 - which is
+// where JAX rounds P and dS - so P and dS never go through shared memory.
+// Head dims are padded to DP (64 or 128) with zero columns.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+using bf16 = __nv_bfloat16;
+
+// C += A B for one 16 x 8 x 16 tile; fragments as the PTX ISA lays them
+// out: g = lane / 4 and c = 2 (lane % 4) index rows and column pairs.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pair(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  return pair(__float2bfloat16(lo), __float2bfloat16(hi));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment of rows [r0, r0 + 16), columns [c0, c0 + 16) of tile t.
+__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const bf16* t,
+                                       int ldt, int r0, int c0, int lane) {
+  const int g = lane >> 2, c = (lane & 3) * 2;
+  f[0] = ld32(t + (r0 + g) * ldt + c0 + c);
+  f[1] = ld32(t + (r0 + g + 8) * ldt + c0 + c);
+  f[2] = ld32(t + (r0 + g) * ldt + c0 + c + 8);
+  f[3] = ld32(t + (r0 + g + 8) * ldt + c0 + c + 8);
+}
+
+// B fragment with B[k][n] = t[n0 + n][k0 + k]: a transposed tile (K^T).
+__device__ __forceinline__ void frag_bt(uint32_t (&f)[2], const bf16* t,
+                                        int ldt, int n0, int k0, int lane) {
+  const int g = lane >> 2, c = (lane & 3) * 2;
+  f[0] = ld32(t + (n0 + g) * ldt + k0 + c);
+  f[1] = ld32(t + (n0 + g) * ldt + k0 + c + 8);
+}
+
+// B fragment with B[k][n] = t[k0 + k][n0 + n]: a tile as it is (V).
+__device__ __forceinline__ void frag_b(uint32_t (&f)[2], const bf16* t,
+                                       int ldt, int k0, int n0, int lane) {
+  const int g = lane >> 2, c = (lane & 3) * 2;
+  const bf16* col = t + n0 + g;
+  f[0] = pair(col[(k0 + c) * ldt], col[(k0 + c + 1) * ldt]);
+  f[1] = pair(col[(k0 + c + 8) * ldt], col[(k0 + c + 9) * ldt]);
+}
+
+// The A operand of a 16 x 16 product from two 16 x 8 accumulator tiles.
+__device__ __forceinline__ void acc_to_a(uint32_t (&f)[4], const float (&l)[4],
+                                         const float (&r)[4]) {
+  f[0] = pack(l[0], l[1]);
+  f[1] = pack(l[2], l[3]);
+  f[2] = pack(r[0], r[1]);
+  f[3] = pack(r[2], r[3]);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Rows [r0, r0 + rows) of one head, columns [0, DP), into a bf16 tile
+// with row stride ldt; zero past `limit` rows and past D columns. 16-byte
+// loads where the head's rows allow them (the common case), else 2-byte.
+template <int DP>
+__device__ __forceinline__ void load_tile(bf16* dst, int ldt, const bf16* src,
+                                          long long ss, int r0, int rows,
+                                          int limit, int D) {
+  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && ss % 8 == 0) {
+    constexpr int kChunks = DP / 8;
+    for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i - r * kChunks) * 8;
+      const int gr = r0 + r;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (gr < limit && c < D)
+        v = *reinterpret_cast<const uint4*>(src + gr * ss + c);
+      *reinterpret_cast<uint4*>(dst + r * ldt + c) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * DP; i += kThreads) {
+      const int r = i / DP, c = i - r * DP;
+      const int gr = r0 + r;
+      dst[r * ldt + c] = gr < limit && c < D ? src[gr * ss + c]
+                                             : __float2bfloat16(0.f);
+    }
+  }
+}
+
+template <int BQ>
+__device__ __forceinline__ void load_stats(const Args& a, size_t bh, int q0,
+                                           float* lse_s, float* delta_s) {
+  for (int r = threadIdx.x; r < BQ; r += kThreads) {
+    const int row = q0 + r;
+    lse_s[r] = row < a.Sq ? a.lse[bh * a.Sq + row] : 0.f;
+    delta_s[r] = row < a.Sq ? a.delta[bh * a.Sq + row] : 0.f;
+  }
+}
+
+// acc[j] = A B^T over the head dim for 16 rows of `at` (from row r0) and
+// 8 j rows of `bt`: the scores Q K^T, dO V^T, K Q^T or V dO^T.
+template <int DP, int NJ>
+__device__ __forceinline__ void scores(float (&acc)[NJ][4], const bf16* at,
+                                       const bf16* bt, int ldt, int r0,
+                                       int lane) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP; kk += 16) {
+    uint32_t fa[4];
+    frag_a(fa, at, ldt, r0, kk, lane);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t fb[2];
+      frag_bt(fb, bt, ldt, j * 8, kk, lane);
+      mma(acc[j], fa, fb);
+    }
+  }
+}
+
+// acc[n] += P M over NK / 2 16-row steps, with P given as accumulator
+// tiles p[NK] (16 x 8 each) and M a tile of NK * 8 rows by DP columns.
+template <int DP, int NK>
+__device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4],
+                                           const float (&p)[NK][4],
+                                           const bf16* m, int ldt, int lane) {
+#pragma unroll
+  for (int t = 0; t < NK / 2; ++t) {
+    uint32_t fa[4];
+    acc_to_a(fa, p[2 * t], p[2 * t + 1]);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      uint32_t fb[2];
+      frag_b(fb, m, ldt, t * 16, n * 8, lane);
+      mma(acc[n], fa, fb);
+    }
+  }
+}
+
+// Writes rows r0 + g and r0 + g + 8 (below `limit`) of a warp's 16 x D
+// accumulators to a contiguous head, in bf16.
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* out, int r0, int limit,
+                                           int D, const float (&acc)[DP / 8][4],
+                                           int lane) {
+  const int g = lane >> 2, c = (lane & 3) * 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= limit) continue;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = n * 8 + c;
+      if (d < D) {
+        *reinterpret_cast<uint32_t*>(out + (size_t)row * D + d) =
+            pack(acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+    }
+  }
+}
+
+constexpr int kFwdBQ = kWarps * 16, kFwdBK = 64;
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(const Args a) {
+  constexpr int BQ = kFwdBQ, BK = kFwdBK, LDT = DP + 8, NJ = BK / 8;
+  extern __shared__ float smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // BQ x LDT
+  bf16* k_s = q_s + BQ * LDT;                 // BK x LDT
+  bf16* v_s = k_s + BK * LDT;                 // BK x LDT
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, c = (lane & 3) * 2;
+  const int h = blockIdx.y, b = blockIdx.z, D = a.D;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+  const bf16* k = head<bf16>(a.k, b, h);
+  const bf16* v = head<bf16>(a.v, b, h);
+  const int q_end = min(q0 + BQ, a.Sq);
+  const int k_end = a.causal ? min(a.kv_len, q_end) : a.kv_len;
+  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+
+  load_tile<DP>(q_s, LDT, head<bf16>(a.q, b, h), a.q.ss, q0, BQ, a.Sq, D);
+  float o[DP / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();  // the previous tiles are read
+    load_tile<DP>(k_s, LDT, k, a.k.ss, k0, BK, a.Sk, D);
+    load_tile<DP>(v_s, LDT, v, a.v.ss, k0, BK, a.Sk, D);
+    __syncthreads();
+
+    float s[NJ][4];
+    scores<DP, NJ>(s, q_s, k_s, LDT, r0, lane);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = masked(a, rows[e >> 1], k0 + j * 8 + c + (e & 1))
+                            ? kNegInf
+                            : s[j][e] * a.scale;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float m_safe[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      m_safe[r] = m_new <= kMasked ? 0.f : m_new;
+      alpha[r] = m[r] <= kMasked ? 0.f : expf(m[r] - m_safe[r]);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            s[j][e] <= kMasked ? 0.f : expf(s[j][e] - m_safe[e >> 1]);
+        s[j][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    accumulate<DP, NJ>(o, s, v_s, LDT, lane);  // P rounded to bf16 here
+  }
+
+  const size_t bh = (size_t)b * a.H + h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      o[n][2 * r] /= l_safe;
+      o[n][2 * r + 1] /= l_safe;
+    }
+    if ((lane & 3) == 0 && rows[r] < a.Sq)
+      a.lse_out[bh * a.Sq + rows[r]] =
+          l[r] == 0.f ? kNegInf : m[r] + logf(l_safe);
+  }
+  store_rows<DP>(static_cast<bf16*>(a.out) + bh * a.Sq * D, q0 + r0, a.Sq, D,
+                 o, lane);
+}
+
+constexpr int kDqBQ = kWarps * 16, kDqBK = 64;
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_tc_kernel(const Args a) {
+  constexpr int BQ = kDqBQ, BK = kDqBK, LDT = DP + 8, NJ = BK / 8;
+  extern __shared__ float smem[];
+  float* lse_s = smem;                           // BQ
+  float* delta_s = lse_s + BQ;                   // BQ
+  bf16* q_s = reinterpret_cast<bf16*>(delta_s + BQ);  // BQ x LDT
+  bf16* do_s = q_s + BQ * LDT;                   // BQ x LDT
+  bf16* k_s = do_s + BQ * LDT;                   // BK x LDT
+  bf16* v_s = k_s + BK * LDT;                    // BK x LDT
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, c = (lane & 3) * 2;
+  const int h = blockIdx.y, b = blockIdx.z, D = a.D;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+  const size_t bh = (size_t)b * a.H + h;
+  const bf16* k = head<bf16>(a.k, b, h);
+  const bf16* v = head<bf16>(a.v, b, h);
+  const int q_end = min(q0 + BQ, a.Sq);
+  const int k_end = a.causal ? min(a.kv_len, q_end) : a.kv_len;
+  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+
+  load_tile<DP>(q_s, LDT, head<bf16>(a.q, b, h), a.q.ss, q0, BQ, a.Sq, D);
+  load_tile<DP>(do_s, LDT, head<bf16>(a.dout, b, h), a.dout.ss, q0, BQ,
+                a.Sq, D);
+  load_stats<BQ>(a, bh, q0, lse_s, delta_s);
+  __syncthreads();
+  const float lse[2] = {lse_s[r0 + g], lse_s[r0 + g + 8]};
+  const float delta[2] = {delta_s[r0 + g], delta_s[r0 + g + 8]};
+
+  float dq[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();  // the previous key tile is read
+    load_tile<DP>(k_s, LDT, k, a.k.ss, k0, BK, a.Sk, D);
+    load_tile<DP>(v_s, LDT, v, a.v.ss, k0, BK, a.Sk, D);
+    __syncthreads();
+
+    float s[NJ][4], dp[NJ][4];
+    scores<DP, NJ>(s, q_s, k_s, LDT, r0, lane);
+    scores<DP, NJ>(dp, do_s, v_s, LDT, r0, lane);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float x = masked(a, rows[r], k0 + j * 8 + c + (e & 1))
+                            ? kNegInf
+                            : s[j][e] * a.scale;
+        const float p = rows[r] < a.Sq ? expf(x - lse[r]) : 0.f;
+        dp[j][e] = p * (dp[j][e] - delta[r]) * a.scale;  // dS
+      }
+    accumulate<DP, NJ>(dq, dp, k_s, LDT, lane);  // dS rounded to bf16 here
+  }
+
+  store_rows<DP>(static_cast<bf16*>(a.dq) + bh * a.Sq * D, q0 + r0, a.Sq, D,
+                 dq, lane);
+}
+
+// dK/dV: 64 keys per block, 16 per warp; q tiles of 32 rows keep the
+// two score tiles, dK and dV in registers.
+constexpr int kKvBK = kWarps * 16, kKvBQ = 32;
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkdv_tc_kernel(const Args a) {
+  constexpr int BQ = kKvBQ, BK = kKvBK, LDT = DP + 8, NJ = BQ / 8;
+  extern __shared__ float smem[];
+  float* lse_s = smem;                           // BQ
+  float* delta_s = lse_s + BQ;                   // BQ
+  bf16* k_s = reinterpret_cast<bf16*>(delta_s + BQ);  // BK x LDT
+  bf16* v_s = k_s + BK * LDT;                    // BK x LDT
+  bf16* q_s = v_s + BK * LDT;                    // BQ x LDT
+  bf16* do_s = q_s + BQ * LDT;                   // BQ x LDT
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, c = (lane & 3) * 2;
+  const int h = blockIdx.y, b = blockIdx.z, D = a.D;
+  const int k0 = blockIdx.x * BK;
+  const size_t bh = (size_t)b * a.H + h;
+  const bf16* q = head<bf16>(a.q, b, h);
+  const bf16* dout = head<bf16>(a.dout, b, h);
+  const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};
+
+  float dk[DP / 8][4], dv[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  if (k0 < a.kv_len) {  // keys past kv_len have P = 0: no gradient
+    load_tile<DP>(k_s, LDT, head<bf16>(a.k, b, h), a.k.ss, k0, BK, a.Sk, D);
+    load_tile<DP>(v_s, LDT, head<bf16>(a.v, b, h), a.v.ss, k0, BK, a.Sk, D);
+    // Causal: rows above this tile's first key see none of its keys.
+    for (int q0 = a.causal ? k0 / BQ * BQ : 0; q0 < a.Sq; q0 += BQ) {
+      __syncthreads();  // the previous q tile is read
+      load_tile<DP>(q_s, LDT, q, a.q.ss, q0, BQ, a.Sq, D);
+      load_tile<DP>(do_s, LDT, dout, a.dout.ss, q0, BQ, a.Sq, D);
+      load_stats<BQ>(a, bh, q0, lse_s, delta_s);
+      __syncthreads();
+
+      // Transposed scores: rows are this warp's keys, columns q rows.
+      float st[NJ][4], dpt[NJ][4];
+      scores<DP, NJ>(st, k_s, q_s, LDT, r0, lane);
+      scores<DP, NJ>(dpt, v_s, do_s, LDT, r0, lane);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qr = j * 8 + c + (e & 1), row = q0 + qr;
+          const float x =
+              masked(a, row, keys[e >> 1]) ? kNegInf : st[j][e] * a.scale;
+          const float p = row < a.Sq ? expf(x - lse_s[qr]) : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - delta_s[qr]) * a.scale;  // dS^T
+        }
+      accumulate<DP, NJ>(dv, st, do_s, LDT, lane);  // P^T dO
+      accumulate<DP, NJ>(dk, dpt, q_s, LDT, lane);  // dS^T Q
+    }
+  }
+
+  store_rows<DP>(static_cast<bf16*>(a.dk) + bh * a.Sk * D, k0 + r0, a.Sk, D,
+                 dk, lane);
+  store_rows<DP>(static_cast<bf16*>(a.dv) + bh * a.Sk * D, k0 + r0, a.Sk, D,
+                 dv, lane);
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// Launch.
+// ---------------------------------------------------------------------------
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+                   cudaStream_t stream, const Args& a) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t delta_pass(const Args& a, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kThreads / 32;
+  const long long rows = (long long)a.B * a.H * a.Sq;
+  return launch(flash_bwd_delta_kernel<T>,
+                dim3((unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock)),
+                kThreads, 0, stream, a);
+}
+
+// CUDA-core kernels, for f32 (exact FMA) and for head dims above 128.
+template <typename T, int DMAX>
+cudaError_t run_fma(const Args& a, bool bwd, cudaStream_t stream) {
+  const size_t ld = a.D + 1, f = sizeof(float);
+  if (!bwd) {
+    constexpr int BQ = 64, BK = 64;
+    return launch(flash_fwd_kernel<T, DMAX, BQ, BK>,
+                  dim3((a.Sq + BQ - 1) / BQ, a.H, a.B), kThreads,
+                  f * ((BQ + BK) * ld + BK * (size_t)a.D + BQ * (BK + 1)),
+                  stream, a);
+  }
+  cudaError_t err = delta_pass<T>(a, stream);
+  if (err != cudaSuccess) return err;
+  {  // dK, dV: for D > 128 a 32-row q tile keeps four tiles in 227 KB
+    constexpr int BQ = DMAX > 128 ? 32 : 64, BK = 64;
+    err = launch(flash_bwd_dkdv_kernel<T, DMAX, BQ, BK>,
+                 dim3((a.Sk + BK - 1) / BK, a.H, a.B), kThreads,
+                 f * (2 * (BK + BQ) * ld + 2 * BQ * (BK + 1) + 2 * BQ),
+                 stream, a);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int BQ = 64, BK = DMAX > 128 ? 32 : 64;
+  return launch(flash_bwd_dq_kernel<T, DMAX, BQ, BK>,
+                dim3((a.Sq + BQ - 1) / BQ, a.H, a.B), kThreads,
+                f * (2 * (BQ + BK) * ld + BQ * (BK + 1) + 2 * BQ), stream, a);
+}
+
+// Tensor-core kernels, for bf16 with D <= 128 (padded to DP).
+template <int DP>
+cudaError_t run_tc(const Args& a, bool bwd, cudaStream_t stream) {
+  const size_t ldt = DP + 8, e = sizeof(tc::bf16), f = sizeof(float);
+  if (!bwd) {
+    constexpr int BQ = tc::kFwdBQ, BK = tc::kFwdBK;
+    return launch(tc::flash_fwd_tc_kernel<DP>,
+                  dim3((a.Sq + BQ - 1) / BQ, a.H, a.B), tc::kThreads,
+                  e * (BQ + 2 * BK) * ldt, stream, a);
+  }
+  cudaError_t err = delta_pass<tc::bf16>(a, stream);
+  if (err != cudaSuccess) return err;
+  {
+    constexpr int BQ = tc::kKvBQ, BK = tc::kKvBK;
+    err = launch(tc::flash_bwd_dkdv_tc_kernel<DP>,
+                 dim3((a.Sk + BK - 1) / BK, a.H, a.B), tc::kThreads,
+                 f * 2 * BQ + e * 2 * (BQ + BK) * ldt, stream, a);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int BQ = tc::kDqBQ, BK = tc::kDqBK;
+  return launch(tc::flash_bwd_dq_tc_kernel<DP>,
+                dim3((a.Sq + BQ - 1) / BQ, a.H, a.B), tc::kThreads,
+                f * 2 * BQ + e * 2 * (BQ + BK) * ldt, stream, a);
+}
+
+// Head dims are bucketed so each thread's accumulators are sized at
+// compile time (columns past D are skipped or zero).
+cudaError_t dispatch(int dtype, const Args& a, bool bwd, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      if (a.D <= 64) return run_fma<float, 64>(a, bwd, s);
+      if (a.D <= 128) return run_fma<float, 128>(a, bwd, s);
+      return run_fma<float, 256>(a, bwd, s);
+    case 1:
+      if (a.D <= 64) return run_tc<64>(a, bwd, s);
+      if (a.D <= 128) return run_tc<128>(a, bwd, s);
+      return run_fma<__nv_bfloat16, 256>(a, bwd, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+View view(const void* ptr, const long long* strides) {
+  return View{ptr, strides[0], strides[1], strides[2]};
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16. q (B, H, Sq, D), k and v (B, H, Sk, D),
+// one dtype, each with a contiguous last dim; `strides` holds the
+// (batch, head, seq) strides of q, k and v in elements. out (B, H, Sq, D)
+// and lse (B, H, Sq) f32 are contiguous. 16 <= D <= 256, D % 8 == 0;
+// 1 <= kv_len <= Sk. Launches on `stream`; returns the cudaError_t.
+extern "C" int flash_fwd(int dtype, const void* q, const void* k,
+                         const void* v, const long long* strides, void* out,
+                         float* lse, int B, int H, int Sq, int Sk, int D,
+                         float scale, int causal, int kv_len, void* stream) {
+  Args a{};
+  a.q = view(q, strides);
+  a.k = view(k, strides + 3);
+  a.v = view(v, strides + 6);
+  a.out = out;
+  a.lse_out = lse;
+  a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.D = D;
+  a.kv_len = kv_len, a.causal = causal, a.scale = scale;
+  return dispatch(dtype, a, false, stream);
+}
+
+// The backward of flash_fwd: q, k, v, out (the forward's) and dout, with
+// their (batch, head, seq) strides in that order in `strides`; lse from
+// the forward; delta (B, H, Sq) f32 scratch; dq, dk, dv contiguous in
+// the input dtype.
+extern "C" int flash_bwd(int dtype, const void* q, const void* k,
+                         const void* v, const void* o, const void* dout,
+                         const long long* strides, const float* lse,
+                         float* delta, void* dq, void* dk, void* dv, int B,
+                         int H, int Sq, int Sk, int D, float scale, int causal,
+                         int kv_len, void* stream) {
+  Args a{};
+  a.q = view(q, strides);
+  a.k = view(k, strides + 3);
+  a.v = view(v, strides + 6);
+  a.o = view(o, strides + 9);
+  a.dout = view(dout, strides + 12);
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = dq, a.dk = dk, a.dv = dv;
+  a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.D = D;
+  a.kv_len = kv_len, a.causal = causal, a.scale = scale;
+  return dispatch(dtype, a, true, stream);
+}
+
+extern "C" const char* flash_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,98 @@
+"""Where the time of the port's training step goes, on one NVIDIA GPU.
+
+Runs the training phase of chip_smoke.py (bench.py's 1.2B Llama config in
+bf16 with flash attention, B 2, S 2048, AdamW) with torch.profiler over
+its timed steps (which prints the phase's own line, its times lengthened
+by the tracing), and prints one JSON line:
+
+- window_ms: the traced window (first to last event);
+- device_busy_ms / idle_share: the union of kernel intervals, and the
+  share of the window with no kernel running;
+- per_step: device ms per training step in four groups, GEMMs (cuBLAS),
+  flash forward (K1), flash backward (its delta, dK/dV and dQ kernels),
+  and elementwise and other work (norms, RoPE, SiLU, casts, the loss, the
+  optimizer, copies), and kernel launches per step;
+- kernels: device time by kernel name, largest first.
+
+Run from the repository root on the card:
+
+    python3 scripts/torch_train_trace.py
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(_HERE))
+sys.path.insert(0, _HERE)
+import chip_smoke  # noqa: E402
+from torch_serve_trace import union_us  # noqa: E402
+
+STEPS = 5
+
+
+def group(name: str) -> str:
+    if "flash_fwd_" in name:
+        return "flash_forward"
+    if "flash_bwd_" in name:
+        return "flash_backward"
+    low = name.lower()
+    if "gemm" in low or "nvjet" in low or "xmma" in low or "cutlass" in low:
+        return "gemm"
+    return "elementwise_and_other"
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("torch_train_trace: no CUDA device available")
+    card = chip_smoke.card_line()
+    chip_smoke._build.build_all()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    chip_smoke.training_phase(card, window=prof, steps=STEPS)
+
+    events = list(prof.events())
+    # Device events, less the device-side copies of record_function
+    # ranges (such as Optimizer.step#AdamW.step), which span kernels.
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    start = min(e.time_range.start for e in events)
+    end = max(e.time_range.end for e in events)
+    busy = union_us([(e.time_range.start, e.time_range.end)
+                     for e in kernels])
+
+    groups = defaultdict(float)
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        groups[group(e.name)] += us
+        by_name[e.name][0] += us
+        by_name[e.name][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    print(json.dumps({
+        "card": card,
+        "steps": STEPS,
+        "window_ms": (end - start) / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "idle_share": 1 - busy / (end - start),
+        "per_step": {
+            **{f"{g}_ms": groups[g] / 1e3 / STEPS for g in (
+                "gemm", "flash_forward", "flash_backward",
+                "elementwise_and_other")},
+            "kernel_launches": len(kernels) / STEPS},
+        "kernels": [{"name": n[:90], "ms": t / 1e3, "launches": c}
+                    for n, (t, c) in top],
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

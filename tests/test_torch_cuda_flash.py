@@ -1,0 +1,134 @@
+"""The flash attention CUDA kernels (forward, and the backward's dK/dV and
+dQ kernels) against their plain PyTorch versions, on the card. Every test
+here needs a CUDA device and skips without one. The file imports neither
+jax nor ray_tpu, so it runs where only the port is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_flash.py
+
+Tolerances: f32 2e-5 forward and 1e-4 grads, as the JAX package's flash
+tests (every product is an exact f32 FMA in both versions). bf16, forward
+and grads, each tensor elementwise: |err| <= 2^-6 |ref| + max(rms(ref) / 32,
+1e-5). Both versions round P, dS and the outputs to bf16 at the same
+places, so they differ where the f32 sum order moves a value across a
+rounding boundary: one ulp, 2^-8 to 2^-7 of the value, of the output or of
+a P or dS term. rms / 32 is about four ulps at the tensor's typical size,
+for values that cancel to near 0.
+"""
+
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ray_tpu_torch.ops import attention as fa  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+FWD_TOL, GRAD_TOL = 2e-5, 1e-4          # f32
+DTYPES = [pytest.param(torch.float32, id="f32"),
+          pytest.param(torch.bfloat16, id="bf16")]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_close(got, want, f32_tol):
+    """f32: rtol = atol = f32_tol; bf16: the per-tensor rule above."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=f32_tol, atol=f32_tol)
+        return
+    want = want.float()
+    atol = max(want.square().mean().sqrt().item() / 32, 1e-5)
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -6, atol=atol)
+
+
+def _inputs(dev, dtype, B, H, Sq, Sk, D, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, H, s, D, generator=g, device=dev).to(dtype)
+            for s in (Sq, Sk, Sk, Sq)]
+
+
+def _check(dtype, Sq, Sk, D, causal, kv_valid_len=None, B=1, H=2,
+           dev=None, v_transposed=False):
+    q, k, v, do = _inputs(dev, dtype, B, H, Sq, Sk, D)
+    if v_transposed:  # as the model hands v over: a (B, S, H, D) view
+        v = v.transpose(1, 2).contiguous().transpose(1, 2)
+    scale = 1 / math.sqrt(D)
+    counts = dict(fa.launch_counts)
+    out, lse = fa._flash_forward(q, k, v, scale, causal, 512, 512,
+                                 kv_valid_len)
+    want, want_lse = fa.flash_forward_reference(q, k, v, scale, causal, 512,
+                                                512, kv_valid_len)
+    res = (q, k, v, want, want_lse)
+    grads = fa._flash_backward(scale, causal, 512, 512, kv_valid_len, res, do)
+    want_grads = fa.flash_backward_reference(scale, causal, 512, 512,
+                                             kv_valid_len, res, do)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_attention_forward"] == \
+        counts["flash_attention_forward"] + 1
+    assert fa.launch_counts["flash_attention_backward"] == \
+        counts["flash_attention_backward"] + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _assert_close(out, want, FWD_TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+    for got, w in zip(grads, want_grads):
+        assert got.dtype == dtype
+        _assert_close(got, w, GRAD_TOL)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 129, 2048])
+def test_kernels_match_plain(cuda, dtype, causal, D, S):
+    _check(dtype, S, S, D, causal, dev=cuda)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ragged_shapes_and_key_mask(cuda, dtype):
+    """Sq != Sk in both directions, kv_valid_len, a head dim that is not a
+    power of two, one above 128, and v as a transposed view."""
+    _check(dtype, 200, 333, 128, True, dev=cuda)
+    _check(dtype, 333, 200, 72, True, dev=cuda)
+    _check(dtype, 300, 333, 128, False, kv_valid_len=250, dev=cuda)
+    _check(dtype, 130, 130, 256, True, dev=cuda, v_transposed=True)
+
+
+def test_training_shape(cuda):
+    """The training cell's attention: B 2, H 16, S 2048, D 128, causal."""
+    _check(torch.bfloat16, 2048, 2048, 128, True, B=2, H=16, dev=cuda,
+           v_transposed=True)
+
+
+def test_autograd_function_matches_plain_attention(cuda):
+    q, k, v, do = _inputs(cuda, torch.float32, 2, 3, 100, 100, 32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, None, True).backward(do)
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.mha_reference(*refs, causal=True).backward(do)
+    for a, b in zip(leaves, refs):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, _ = _inputs(cuda, torch.float32, 1, 2, 64, 64, 32)
+    with pytest.raises(ValueError, match="dtype"):
+        fa._flash_forward(q.double(), k.double(), v.double(), 0.1, True, 64,
+                          64)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3), k,
+                          v, 0.1, True, 64, 64)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa._flash_forward(q[..., :20], k[..., :20], v[..., :20], 0.1, True,
+                          64, 64)
+    with pytest.raises(ValueError, match="no key"):
+        fa._flash_forward(q, k, v, 0.1, False, 64, 64, kv_valid_len=0)
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        fa._flash_forward(q, k.bfloat16(), v, 0.1, True, 64, 64)

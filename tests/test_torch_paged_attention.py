@@ -97,9 +97,10 @@ def test_import_loads_no_jax_and_no_cuda():
     code = (
         "import sys, torch\n"
         "import ray_tpu_torch.serve.llm, ray_tpu_torch.models, "
-        "ray_tpu_torch.ops\n"
+        "ray_tpu_torch.ops, ray_tpu_torch.train.spmd\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ray_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "                                  'ray_tpu'))\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
