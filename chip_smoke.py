@@ -32,11 +32,13 @@ Phases, in order; a failure in any of them ends the run with an error:
 5. flash   - the flash attention kernels (forward; backward = delta
              pre-pass, dK/dV and dQ kernels) against their plain
              versions: f32 and bf16, causal or not, D in {64, 128}, S in
-             {1, 129, 2048}, one Sq != Sk case and one kv_valid_len case
-             (tolerances 2e-5 forward / 1e-4 grads in f32; in bf16 each
-             tensor is held to |err| <= 2^-6 |ref| + rms(ref) / 32, see
-             bf16_err), then the training shape (B 2, H 16, S 2048, D 128,
-             causal, bf16), timed as in phase 2; the library yardstick is
+             {1, 129, 2048}, one Sq != Sk case and one kv_valid_len case,
+             q, k and v as the model's (B, S, H, D) views (tolerances
+             2e-5 forward / 1e-4 grads in f32; in bf16 each tensor is
+             held to |err| <= 2^-6 |ref| + rms(ref) / 32, see bf16_err),
+             then the training shape (B 2, H 16, S 2048, D 128, causal,
+             bf16) with contiguous inputs and with the views, the views
+             timed as in phase 2; the library yardstick is
              F.scaled_dot_product_attention (forward, and forward plus
              backward), not used by the port.
 6. train parity - the training cell's widths at 2 layers, from
@@ -435,18 +437,23 @@ def flash_bound_ms(B, H, Sq, Sk, D, causal, dtype, card, backward):
                                        else "operations")
 
 
-def flash_inputs(dtype, B, H, Sq, Sk, D, seed=0):
-    """q, k, v, dO; v as the model hands it over, a (B, S, H, D) view."""
+def flash_inputs(dtype, B, H, Sq, Sk, D, seed=0, views=True):
+    """q, k, v, dO; with `views`, q, k and v as the model hands them over,
+    (B, S, H, D) tensors seen as (B, H, S, D), else contiguous."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(B, H, s, D, generator=g, device="cuda")
                    .to(dtype) for s in (Sq, Sk, Sk, Sq))
-    return q, k, v.transpose(1, 2).contiguous().transpose(1, 2), do
+    if views:
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    return q, k, v, do
 
 
-def flash_case(dtype, B, H, Sq, Sk, D, causal, kv_valid_len=None):
+def flash_case(dtype, B, H, Sq, Sk, D, causal, kv_valid_len=None,
+               views=True):
     """Forward and backward kernels against the plain versions; returns
     (inputs, residuals, max abs errors of out and of dq, dk, dv)."""
-    q, k, v, do = flash_inputs(dtype, B, H, Sq, Sk, D)
+    q, k, v, do = flash_inputs(dtype, B, H, Sq, Sk, D, views=views)
     scale = 1 / math.sqrt(D)
     out, lse = fa._flash_forward(q, k, v, scale, causal, 512, 512,
                                  kv_valid_len)
@@ -470,7 +477,8 @@ def flash_case(dtype, B, H, Sq, Sk, D, causal, kv_valid_len=None):
         margins = (f"; margins out {m_out:.3g}, dq/dk/dv "
                    + "/".join(f"{m:.3g}" for _, m in g))
     log(f"flash {str(dtype)[6:]} B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
-        f"causal={causal} kv_valid_len={kv_valid_len}: out err {err:.3g}, "
+        f"causal={causal} kv_valid_len={kv_valid_len} views={views}: "
+        f"out err {err:.3g}, "
         f"grad err {grad_err:.3g}{margins}")
     return (q, k, v, do), res, err, grad_err
 
@@ -490,6 +498,7 @@ def flash_kernel_phase(card: str) -> dict:
 
     B, H, S, D = TRAIN_B, TRAIN_CFG.n_heads, TRAIN_S, TRAIN_CFG.head_dim
     dtype, scale = torch.bfloat16, 1 / math.sqrt(D)
+    flash_case(dtype, B, H, S, S, D, True, views=False)
     (q, k, v, do), res, err, grad_err = flash_case(dtype, B, H, S, S, D, True)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
 

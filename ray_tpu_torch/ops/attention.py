@@ -4,7 +4,9 @@ Port of ray_tpu/ops/attention.py. The Pallas forward `_flash_fwd_kernel`
 and the blockwise `lax.scan` backward become one CUDA source,
 `csrc/flash_attention.cu`: a forward kernel, and a backward of a dK/dV
 kernel and a dQ kernel (with a small pre-pass for delta). bf16 inputs with
-head dims up to 128 run on the tensor cores; f32 inputs run exact f32 FMAs.
+head dims up to 128 run on the tensor cores, the forward on wgmma with
+TMA loads (so its inputs must suit TMA, see `tma_layout_problem`); f32
+inputs run exact f32 FMAs.
 `flash_attention` is a `torch.autograd.Function` over them, as the JAX
 function is a `custom_vjp` whose residuals are (q, k, v, out, lse).
 
@@ -187,8 +189,29 @@ def flash_backward_reference(sm_scale, causal, block_q, block_k,
 # ---------------------------------------------------------------------------
 
 
-def _check(q, k, v, kv_valid_len, more=()):
-    """Raises unless the kernels take these tensors; returns kv_len."""
+def tma_layout_problem(t) -> str | None:
+    """Why TMA cannot load the (B, H, S, D) tensor t, or None if it can.
+
+    TMA takes a base aligned to 16 bytes and strides that are multiples of
+    16 bytes. A dim of size 1 is never stepped over, so its stride does
+    not matter. A contiguous tensor with D % 8 == 0 suits, and so do the
+    model's (B, S, H, D) projections seen as (B, H, S, D)."""
+    if t.data_ptr() % 16:
+        return (f"its data starts {t.data_ptr() % 16} bytes past a 16-byte "
+                "boundary")
+    item = t.element_size()
+    for name, size, stride in zip(("batch", "head", "seq"), t.shape[:3],
+                                  t.stride()[:3]):
+        if size > 1 and stride * item % 16:
+            return (f"its {name} stride of {stride} elements is not a "
+                    "multiple of 16 bytes")
+    return None
+
+
+def _check(q, k, v, kv_valid_len, more=(), tma=False):
+    """Raises unless the kernels take these tensors; returns kv_len.
+    `tma`: the tensors go to the forward, which loads bf16 with D <= 128
+    through TMA."""
     if q.device.type != "cuda":
         raise ValueError(
             f"flash attention kernel needs CUDA or CPU tensors, got {q.device}")
@@ -214,6 +237,12 @@ def _check(q, k, v, kv_valid_len, more=()):
     for name, t in (("q", q),) + named:
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
+        problem = tma_layout_problem(t) \
+            if tma and q.dtype == torch.bfloat16 and D <= 128 else None
+        if problem:
+            raise ValueError(f"{name} does not suit the forward kernel's TMA "
+                             f"loads: {problem} (.contiguous() makes it "
+                             "suit)")
     Sk = k.shape[2]
     if Sq < 1 or Sk < 1:
         raise ValueError("empty sequence")
@@ -241,14 +270,21 @@ def _flash_forward(q, k, v, sm_scale: float, causal: bool,
     """(out, lse (B, H, Sq) f32) for q (B, H, Sq, D), k and v (B, H, Sk, D).
 
     The kernel takes (batch, head, seq) strides, so inputs need only a
-    contiguous last dim (the model hands v over as a transposed view).
+    contiguous last dim (the model hands q, k and v over as transposed
+    views).
     Its tiles are its own: block_q and block_k set only the plain
-    version's blocks, which change nothing but the order of f32 sums."""
+    version's blocks, which change nothing but the order of f32 sums.
+    bf16 with D <= 128 loads through TMA, which bounds the layout
+    (`tma_layout_problem`), and folds the scale into exp2 after the row
+    max, which needs sm_scale > 0; the other kernels take any scale."""
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, sm_scale, causal, block_q,
                                        block_k, kv_valid_len)
-    kv_len = _check(q, k, v, kv_valid_len)
+    kv_len = _check(q, k, v, kv_valid_len, tma=True)
     B, H, Sq, D = q.shape
+    if q.dtype == torch.bfloat16 and D <= 128 and not sm_scale > 0:
+        raise ValueError(f"sm_scale {sm_scale}: the bf16 forward for D <= 128 "
+                         "needs a positive scale")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _kernels()

@@ -18,8 +18,8 @@
 //
 // Block mapping. The TPU grid walks k-blocks in order and carries the
 // softmax state in VMEM scratch; here one thread block owns one
-// (batch, head, 64-row q tile) and loops over 64-key tiles itself, with
-// the running max, denominator and accumulator in registers. Causal
+// (batch, head, q tile) and loops over key tiles itself, with the running
+// max, denominator and accumulator in registers. Causal
 // tiles wholly above the diagonal are never visited (the loop ends at
 // the last tile touching it), which is what `needed` and the clamped
 // kv_index do on the TPU. Any Sq and Sk: the last tile of each is
@@ -39,11 +39,12 @@
 // the forward's products, about 87 us. Two designs meet that bound:
 //
 // - bf16 with D <= 128 (the training path): every tile product on the
-//   tensor cores with mma.sync m16n8k16 (bf16 operands, f32 sums), from
-//   bf16 tiles in shared memory; four warps of 16 rows each, the score
-//   accumulators reused in registers as the operand of the next product
-//   (see namespace tc). Not yet wgmma, TMA or a pipeline over key tiles,
-//   which is what still separates it from the bound.
+//   tensor cores. The forward runs wgmma on tiles that TMA loads, three
+//   stages deep (namespace wg); the inputs must suit TMA: a 16-byte
+//   aligned base and (batch, head, seq) strides that are multiples of 8
+//   elements. The backward runs mma.sync m16n8k16 on tiles loaded through
+//   registers (namespace tc). In both the score accumulators are reused in
+//   registers as the operand of the next product.
 // - f32 (and bf16 with D > 128): every product an f32 FMA on the CUDA
 //   cores, exact as the 2e-5 and 1e-4 tolerances of the JAX tests need
 //   (TF32 could not meet them), from f32 tiles in shared memory; 256
@@ -55,6 +56,7 @@
 //
 // Both schedule the longest causal q tiles first.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -515,9 +517,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernels: bf16 inputs, D <= 128.
+// Tensor-core backward kernels: bf16 inputs, D <= 128.
 //
-// The same three kernels with every tile product on mma.sync.m16n8k16
+// The backward's kernels with every tile product on mma.sync.m16n8k16
 // (bf16 operands, f32 accumulators). Four warps per block; each warp owns
 // 16 rows of the block's tile (q rows, or keys in the dK/dV kernel), so
 // a row's softmax state lives in the four lanes that hold it and row
@@ -706,94 +708,6 @@ __device__ __forceinline__ void store_rows(bf16* out, int r0, int limit,
   }
 }
 
-constexpr int kFwdBQ = kWarps * 16, kFwdBK = 64;
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(const Args a) {
-  constexpr int BQ = kFwdBQ, BK = kFwdBK, LDT = DP + 8, NJ = BK / 8;
-  extern __shared__ float smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);  // BQ x LDT
-  bf16* k_s = q_s + BQ * LDT;                 // BK x LDT
-  bf16* v_s = k_s + BK * LDT;                 // BK x LDT
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
-  const int g = lane >> 2, c = (lane & 3) * 2;
-  const int h = blockIdx.y, b = blockIdx.z, D = a.D;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
-  const bf16* k = head<bf16>(a.k, b, h);
-  const bf16* v = head<bf16>(a.v, b, h);
-  const int q_end = min(q0 + BQ, a.Sq);
-  const int k_end = a.causal ? min(a.kv_len, q_end) : a.kv_len;
-  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-
-  load_tile<DP>(q_s, LDT, head<bf16>(a.q, b, h), a.q.ss, q0, BQ, a.Sq, D);
-  float o[DP / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tiles are read
-    load_tile<DP>(k_s, LDT, k, a.k.ss, k0, BK, a.Sk, D);
-    load_tile<DP>(v_s, LDT, v, a.v.ss, k0, BK, a.Sk, D);
-    __syncthreads();
-
-    float s[NJ][4];
-    scores<DP, NJ>(s, q_s, k_s, LDT, r0, lane);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = masked(a, rows[e >> 1], k0 + j * 8 + c + (e & 1))
-                            ? kNegInf
-                            : s[j][e] * a.scale;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float m_safe[2], alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      m_safe[r] = m_new <= kMasked ? 0.f : m_new;
-      alpha[r] = m[r] <= kMasked ? 0.f : expf(m[r] - m_safe[r]);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p =
-            s[j][e] <= kMasked ? 0.f : expf(s[j][e] - m_safe[e >> 1]);
-        s[j][e] = p;
-        sum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-    accumulate<DP, NJ>(o, s, v_s, LDT, lane);  // P rounded to bf16 here
-  }
-
-  const size_t bh = (size_t)b * a.H + h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      o[n][2 * r] /= l_safe;
-      o[n][2 * r + 1] /= l_safe;
-    }
-    if ((lane & 3) == 0 && rows[r] < a.Sq)
-      a.lse_out[bh * a.Sq + rows[r]] =
-          l[r] == 0.f ? kNegInf : m[r] + logf(l_safe);
-  }
-  store_rows<DP>(static_cast<bf16*>(a.out) + bh * a.Sq * D, q0 + r0, a.Sq, D,
-                 o, lane);
-}
-
 constexpr int kDqBQ = kWarps * 16, kDqBK = 64;
 
 template <int DP>
@@ -929,6 +843,417 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
+// The bf16 forward for D <= 128 on wgmma and TMA.
+//
+// One block of two warpgroups (256 threads) owns 128 q rows of one
+// (batch, head), 64 rows per warpgroup, and loops over key tiles of 128.
+// Tiles arrive by TMA in the 128-byte swizzle that wgmma reads: the Q
+// tile once, and K and V in a ring of three stages, so that tiles j + 1
+// and j + 2 are in flight while tile j is used. Thread 0 loads the first
+// tiles; a stage is refilled by the last of the block's eight warps to be
+// done with it. Out-of-bounds rows and columns arrive as zeros, so ragged
+// S and D < DP need no code. Each tile:
+//   S = Q K^T    wgmma m64n128k16, Q and K from shared memory (K-major);
+//   softmax      in registers: a warp's part of the accumulator is laid out
+//                as mma.sync's m16n8 C fragments (rows g and g + 8, two
+//                columns per lane), so a row's max and sum are two quad
+//                shuffles; exp2 with scale * log2(e) folded into one FFMA;
+//                masks only on tiles that cross the diagonal or kv_len;
+//   O += P V     wgmma m64n{DP}k16, P from registers as bf16 (where JAX
+//                rounds it), V from shared memory (MN-major, transposed).
+// A warpgroup issues tile j + 1's S = Q K^T and then tile j's O += P V,
+// and runs tile j + 1's softmax while P V is on the tensor cores. No
+// producer warp, no register reallocation, no ping-pong between the
+// warpgroups: at the training shape the softmax, which overlaps neither
+// its own warpgroup's S = Q K^T nor, by design, the other's products,
+// adds about 40% to the kernel's time without it (PERF.md).
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using tc::bf16;
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int BQ = 128, BK = 128, kStages = 3;
+constexpr int kAtomCols = 64;   // bf16 columns in one 128-byte swizzled row
+constexpr uint32_t kRowBytes = 128;
+
+template <int DP>
+constexpr size_t smem_bytes() {
+  // Q, the K and V rings, mbarriers and counters, and slack to align
+  // to 1024.
+  return (size_t)(BQ + 2 * kStages * BK) * DP * sizeof(bf16) + 64 + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete. A load that never
+// lands (a byte count that does not match its boxes) traps after about
+// ten seconds instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 20000000000ll) __trap();
+  }
+}
+
+// One box (64 columns x rows) of a (D, S, H, B) tensor map into dst.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int s0, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(s0),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
+// K-major (Q, K): sbo = 1024, the stride between 8-row groups; lbo unused.
+// MN-major (V): lbo = the stride between 64-column atoms, sbo = 1024
+// between groups of 8 rows (keys, the reduction dim).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads of accumulators across a wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+#define WG_ACC(j) \
+  "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+#define WG_ACC8(j)                                                       \
+  WG_ACC(j), WG_ACC(j + 1), WG_ACC(j + 2), WG_ACC(j + 3), WG_ACC(j + 4), \
+      WG_ACC(j + 5), WG_ACC(j + 6), WG_ACC(j + 7)
+#define WG_REGS32                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31"
+#define WG_REGS64                                                        \
+  WG_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "  \
+            "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+            "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 x 128) = or += A B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N) += A B, A from registers, B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_REGS64
+#undef WG_REGS32
+#undef WG_ACC8
+#undef WG_ACC
+
+// K and V tile j into stage j % kStages, counted on that stage's barrier.
+template <int DP>
+__device__ __forceinline__ void load_kv(const CUtensorMap* k_map,
+                                        const CUtensorMap* v_map,
+                                        uint32_t k_s, uint32_t v_s,
+                                        uint32_t bars, int j, int h, int b) {
+  constexpr uint32_t kTileBytes = BK * DP * sizeof(bf16);
+  const int st = j % kStages;
+  const uint32_t bar = bars + 8 * (1 + st);
+  mbar_expect_tx(bar, 2 * kTileBytes);
+#pragma unroll
+  for (int t = 0; t < DP / kAtomCols; ++t) {
+    const uint32_t at = st * kTileBytes + t * BK * kRowBytes;
+    tma_load(k_s + at, k_map, bar, t * kAtomCols, j * BK, h, b);
+    tma_load(v_s + at, v_map, bar, t * kAtomCols, j * BK, h, b);
+  }
+}
+
+// exp2 on the special function unit; flushes results below 2^-126 to 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one score tile, in place: scores in raw units
+// (the scale enters through sl2 = scale * log2(e), sm_scale > 0) become
+// p; m and l move on, and alpha is the factor for O. Masks are tested
+// only on a tile that crosses the diagonal or kv_len (`edge`). A masked
+// score is -1e30, so exp2 of its FFMA is exactly 0, JAX's p = 0, with no
+// test per element.
+template <int NJ>
+__device__ __forceinline__ void softmax(float (&s)[NJ][4], float (&m)[2],
+                                        float (&l)[2], float (&alpha)[2],
+                                        const Args& a, int k0, bool edge,
+                                        const int (&rows)[2], int c,
+                                        float sl2) {
+#pragma unroll
+  for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + jn * 8 + c + (e & 1);
+      if (edge && ((a.causal && col > rows[e >> 1]) || col >= a.kv_len))
+        s[jn][e] = kNegInf;
+    }
+  float mx[2] = {kNegInf, kNegInf}, neg[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[jn][e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], tc::quad_max(mx[r]));
+    const float m_safe = m_new <= kMasked ? 0.f : m_new;
+    alpha[r] = m[r] <= kMasked ? 0.f : exp2_approx((m[r] - m_safe) * sl2);
+    neg[r] = -m_safe * sl2;
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_approx(fmaf(s[jn][e], sl2, neg[e >> 1]));
+      s[jn][e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + tc::quad_sum(sum[r]);
+}
+
+// S = Q K^T for this warpgroup's 64 rows over DP / 16 steps of 16
+// columns: 32 bytes on within a 128-byte swizzled row, then on to the
+// next 64-column atom. Issued, not waited for.
+template <int DP>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 8][4], uint32_t q_wg,
+                                         uint32_t k_t) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t col = (kk & 3) * 32;
+    wgmma_ss_n128(s, desc(q_wg + (kk >> 2) * BQ * kRowBytes + col, 16, 1024),
+                  desc(k_t + (kk >> 2) * BK * kRowBytes + col, 16, 1024),
+                  kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V over the tile's 16-key steps: V's 16 keys are two 8-row groups
+// (sbo), its DP columns one or two 64-column atoms (lbo). Issued, not
+// waited for.
+template <int NO>
+__device__ __forceinline__ void issue_pv(float (&o)[NO][4],
+                                         const uint32_t (&pa)[BK / 16][4],
+                                         uint32_t v_t) {
+#pragma unroll
+  for (int t = 0; t < BK / 16; ++t)
+    wgmma_rs(o, pa[t], desc(v_t + t * 16 * kRowBytes, BK * kRowBytes, 1024));
+  wgmma_commit();
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const Args a) {
+  constexpr int kAtoms = DP / kAtomCols, NJ = BK / 8;
+  constexpr uint32_t kQBytes = BQ * DP * sizeof(bf16);
+  constexpr uint32_t kTileBytes = BK * DP * sizeof(bf16);
+  extern __shared__ uint8_t smem_raw[];
+  // The swizzle repeats every 1024 bytes, and wgmma finds its phase from
+  // address bits: every tile starts on a 1024-byte boundary.
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023) & ~1023u;
+  const uint32_t k_s = q_s + kQBytes;                // kStages tiles
+  const uint32_t v_s = k_s + kStages * kTileBytes;   // kStages tiles
+  const uint32_t bars = v_s + kStages * kTileBytes;  // q, then one a stage
+  // Per stage, the warps done with its tile (a count that only grows).
+  unsigned* released = reinterpret_cast<unsigned*>(
+      smem_raw + (bars + 8 * (1 + kStages) - raw));
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int c = (lane & 3) * 2;
+  const int wgi = tid >> 7;
+  // Blocks launch in index order, and the q tile varies slowest: the
+  // longest causal tiles of all heads go first. (Head by head instead
+  // keeps a head's K and V in L2 while its tiles run, which pays once
+  // the heads' K and V outgrow L2, not at the training shape: PERF.md.)
+  const int n_bh = a.B * a.H;
+  const int bh_i = blockIdx.x % n_bh, h = bh_i % a.H, b = bh_i / a.H;
+  const int q0 = (gridDim.x / n_bh - 1 - blockIdx.x / n_bh) * BQ;
+  const int r0 = q0 + wgi * 64 + ((tid >> 5) & 3) * 16;  // this warp's rows
+  const int rows[2] = {r0 + (lane >> 2), r0 + (lane >> 2) + 8};
+  const int q_end = min(q0 + BQ, a.Sq);
+  const int k_end = a.causal ? min(a.kv_len, q_end) : a.kv_len;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  auto edge = [&](int k0) {
+    return (a.causal && k0 + BK - 1 > r0) || k0 + BK > a.kv_len;
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(bars + 8 * i);
+    for (int i = 0; i < kStages; ++i) released[i] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, kQBytes);
+#pragma unroll
+    for (int t = 0; t < kAtoms; ++t)
+      tma_load(q_s + t * BQ * kRowBytes, &q_map, bars, t * kAtomCols, q0, h,
+               b);
+    for (int j = 0; j < kStages && j < n_tiles; ++j)
+      load_kv<DP>(&k_map, &v_map, k_s, v_s, bars, j, h, b);
+  }
+
+  // scale * log2(e): p = exp2(s * sl2 - m * sl2) = exp(s * scale - m * scale).
+  const float sl2 = a.scale * 1.4426950408889634f;
+  float o[DP / 8][4], s[NJ][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float alpha[2];
+  uint32_t pa[BK / 16][4];  // P of the tile in hand, bf16, as wgmma's A
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  const uint32_t q_wg = q_s + wgi * 64 * kRowBytes;  // this warpgroup's rows
+  auto kv_full = [&](int j) {
+    return mbar_wait(bars + 8 * (1 + j % kStages), (j / kStages) & 1);
+  };
+
+  // Tile 0's scores and P.
+  mbar_wait(bars, 0);
+  kv_full(0);
+  wgmma_fence();
+  issue_qk<DP>(s, q_wg, k_s);
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax(s, m, l, alpha, a, 0, edge(0), rows, c, sl2);
+#pragma unroll
+  for (int t = 0; t < BK / 16; ++t) tc::acc_to_a(pa[t], s[2 * t], s[2 * t + 1]);
+
+  // Each step issues tile j + 1's scores and then O += P_j V_j, and runs
+  // the softmax of tile j + 1 while P_j V_j is on the tensor cores. The
+  // last tile's P V follows the loop, so that no branch in the loop
+  // decides what is in flight (ptxas would serialize the wgmmas).
+  for (int j = 0; j + 1 < n_tiles; ++j) {
+    kv_full(j + 1);
+    fence_regs(o);
+    wgmma_fence();
+    issue_qk<DP>(s, q_wg, k_s + (j + 1) % kStages * kTileBytes);
+    issue_pv(o, pa, v_s + j % kStages * kTileBytes);
+    wgmma_wait<1>();  // the scores; P_j V_j may still run
+    fence_regs(s);
+    softmax(s, m, l, alpha, a, (j + 1) * BK, edge((j + 1) * BK), rows, c,
+            sl2);
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t)
+      tc::acc_to_a(pa[t], s[2 * t], s[2 * t + 1]);  // P rounded to bf16
+    // Tile j's stage is read (its K by step j - 1, its V here): each warp
+    // counts itself done with it after its wgmma wait, and the last of
+    // the eight refills it with tile j + 3. No warp waits for another, so
+    // one warpgroup's softmax can run beside the other's wgmmas.
+    if (j + kStages < n_tiles && lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(&released[j % kStages], 1) % (kThreads / 32) ==
+          kThreads / 32 - 1) {
+        __threadfence_block();
+        load_kv<DP>(&k_map, &v_map, k_s, v_s, bars, j + kStages, h, b);
+      }
+    }
+  }
+  fence_regs(o);
+  wgmma_fence();
+  issue_pv(o, pa, v_s + (n_tiles - 1) % kStages * kTileBytes);
+  wgmma_wait<0>();
+  fence_regs(o);
+
+  const size_t bh = (size_t)b * a.H + h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      o[n][2 * r] /= l_safe;
+      o[n][2 * r + 1] /= l_safe;
+    }
+    // The one conversion back to natural log: m * scale is JAX's max.
+    if ((lane & 3) == 0 && rows[r] < a.Sq)
+      a.lse_out[bh * a.Sq + rows[r]] =
+          l[r] == 0.f ? kNegInf : m[r] * a.scale + logf(l_safe);
+  }
+  tc::store_rows<DP>(static_cast<bf16*>(a.out) + bh * a.Sq * a.D, r0, a.Sq,
+                     a.D, o, lane);
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
 // Launch.
 // ---------------------------------------------------------------------------
 
@@ -980,16 +1305,85 @@ cudaError_t run_fma(const Args& a, bool bwd, cudaStream_t stream) {
                 f * (2 * (BQ + BK) * ld + BQ * (BK + 1) + 2 * BQ), stream, a);
 }
 
+// cuTensorMapEncodeTiled from the driver, found through the runtime so
+// that the library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over a bf16 (B, H, S, D) view as (D, S, H, B), strides in
+// bytes, boxes of 64 columns by `rows`, 128-byte swizzle, zeros out of
+// bounds. A dim of size 1 is never stepped over: it gets the stride a
+// contiguous tensor would have, which TMA's multiple-of-16 rule accepts.
+cudaError_t tile_map(CUtensorMap* map, const View& t, int B, int H, int S,
+                     int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)t.ss * 2, (cuuint64_t)t.sh * 2,
+                           (cuuint64_t)t.sb * 2};
+  if (S == 1) strides[0] = (cuuint64_t)D * 2;
+  if (H == 1) strides[1] = strides[0] * S;
+  if (B == 1) strides[2] = strides[1] * H;
+  const cuuint32_t box[4] = {(cuuint32_t)wg::kAtomCols, (cuuint32_t)rows, 1,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t.ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The bf16 forward for D <= 128: tensor maps built for this call.
+template <int DP>
+cudaError_t run_fwd_wgmma(const Args& a, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err = tile_map(&q_map, a.q, a.B, a.H, a.Sq, a.D, wg::BQ);
+  if (err == cudaSuccess)
+    err = tile_map(&k_map, a.k, a.B, a.H, a.Sk, a.D, wg::BK);
+  if (err == cudaSuccess)
+    err = tile_map(&v_map, a.v, a.B, a.H, a.Sk, a.D, wg::BK);
+  if (err != cudaSuccess) return err;
+  const auto kernel = wg::flash_fwd_wgmma_kernel<DP>;
+  constexpr size_t smem = wg::smem_bytes<DP>();
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned n_q = (a.Sq + wg::BQ - 1) / wg::BQ;
+  kernel<<<n_q * a.B * a.H, wg::kThreads, smem, stream>>>(q_map, k_map, v_map,
+                                                          a);
+  return cudaGetLastError();
+}
+
 // Tensor-core kernels, for bf16 with D <= 128 (padded to DP).
 template <int DP>
 cudaError_t run_tc(const Args& a, bool bwd, cudaStream_t stream) {
   const size_t ldt = DP + 8, e = sizeof(tc::bf16), f = sizeof(float);
-  if (!bwd) {
-    constexpr int BQ = tc::kFwdBQ, BK = tc::kFwdBK;
-    return launch(tc::flash_fwd_tc_kernel<DP>,
-                  dim3((a.Sq + BQ - 1) / BQ, a.H, a.B), tc::kThreads,
-                  e * (BQ + 2 * BK) * ldt, stream, a);
-  }
+  if (!bwd) return run_fwd_wgmma<DP>(a, stream);
   cudaError_t err = delta_pass<tc::bf16>(a, stream);
   if (err != cudaSuccess) return err;
   {
@@ -1033,7 +1427,10 @@ View view(const void* ptr, const long long* strides) {
 // one dtype, each with a contiguous last dim; `strides` holds the
 // (batch, head, seq) strides of q, k and v in elements. out (B, H, Sq, D)
 // and lse (B, H, Sq) f32 are contiguous. 16 <= D <= 256, D % 8 == 0;
-// 1 <= kv_len <= Sk. Launches on `stream`; returns the cudaError_t.
+// 1 <= kv_len <= Sk. bf16 with D <= 128 needs scale > 0 and is loaded by
+// TMA: q, k and v need 16-byte aligned bases and strides that are
+// multiples of 8 (else cudaErrorInvalidValue). Launches on `stream`;
+// returns the cudaError_t.
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                          const void* v, const long long* strides, void* out,
                          float* lse, int B, int H, int Sq, int Sk, int D,

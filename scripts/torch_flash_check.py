@@ -1,11 +1,13 @@
 """Quick check of the flash attention kernels on one NVIDIA GPU: the
 first call to make after editing ray_tpu_torch/ops/csrc/flash_attention.cu.
 
-Builds the kernels (printing ptxas's register and spill counts for the
-flash source when it builds it), then runs chip_smoke.py's flash phase:
-the kernels against their plain versions over its cases, and their times
-at the training shape (B 2, H 16, S 2048, D 128, causal, bf16), which it
-prints as one JSON line per kernel.
+Builds the kernels and shows what the forward compiled to: ptxas's
+registers and spills for each flash kernel (when this call built the
+source), and from `cuobjdump` of the built library each kernel's resource
+use and its counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions.
+Then it runs chip_smoke.py's flash phase: the kernels against their plain
+versions over its cases, and their times at the training shape (B 2,
+H 16, S 2048, D 128, causal, bf16), printed as one JSON line per kernel.
 
     python3 scripts/torch_flash_check.py
 """
@@ -14,6 +16,9 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
+import subprocess
 import sys
 import time
 
@@ -23,6 +28,26 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from ray_tpu_torch import _build  # noqa: E402
 
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
+def _cuobjdump() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+
+
+def sass_counts(lib) -> dict:
+    """{kernel: {op: count}} over the library's SASS, flash kernels only."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "flash" in name:
+            counts[name] = {op: len(re.findall(rf"\b{op}\b", part))
+                            for op in SASS_OPS}
+    return counts
+
 
 def main():
     if not torch.cuda.is_available():
@@ -30,11 +55,17 @@ def main():
     card = chip_smoke.card_line()
     print(f"card: {card}")
     t0 = time.perf_counter()
-    _build.build_all()
+    lib = _build.build_all()["flash_attention"]
     print(f"build: {time.perf_counter() - t0:.1f} s")
     log = _build.build_log  # empty when the libraries were built before
     if "== flash_attention.cu" in log:
         print(log[log.index("== flash_attention.cu"):].split("\n== ")[0])
+    usage = subprocess.run([_cuobjdump(), "-res-usage", str(lib)], check=True,
+                           capture_output=True, text=True, timeout=300).stdout
+    print("\n".join(line.strip() for line in usage.splitlines()
+                    if "REG:" in line or "flash" in line))
+    for name, counts in sass_counts(lib).items():
+        print("sass " + json.dumps({"kernel": name, **counts}))
     for row in chip_smoke.flash_kernel_phase(card).values():
         print(json.dumps(row), flush=True)
 

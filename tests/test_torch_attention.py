@@ -131,6 +131,32 @@ def test_flash_wrappers_refuse_other_devices():
     assert ta.launch_counts["flash_attention_forward"] == 0
 
 
+@pytest.mark.parametrize("layout,problem", [
+    pytest.param("contiguous", None, id="contiguous"),
+    pytest.param("model_view", None, id="model-view"),
+    pytest.param("d72", None, id="d72"),
+    pytest.param("offset", "16-byte boundary", id="offset-by-one"),
+])
+def test_tma_layout_rule(layout, problem):
+    """The forward's TMA loads take a 16-byte aligned base and strides of
+    multiples of 16 bytes: a contiguous (B, H, S, D) tensor, the model's
+    (B, S, H, D) projection seen as (B, H, S, D), and D = 72 suit; a view
+    one element into its storage does not."""
+    B, H, S, D = 2, 3, 5, 72 if layout == "d72" else 64
+    if layout == "model_view":
+        t = torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    elif layout == "offset":
+        n = B * H * S * D
+        t = torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(B, H, S, D)
+    else:
+        t = torch.zeros(B, H, S, D, dtype=torch.bfloat16)
+    got = ta.tma_layout_problem(t)
+    if problem is None:
+        assert got is None
+    else:
+        assert problem in got
+
+
 def test_sequence_parallel_attention_raises():
     q = torch.zeros(1, 1, 4, 16)
     for fn in (ta.ring_attention, ta.ulysses_attention):

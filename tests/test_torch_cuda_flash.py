@@ -55,11 +55,19 @@ def _inputs(dev, dtype, B, H, Sq, Sk, D, seed=0):
             for s in (Sq, Sk, Sk, Sq)]
 
 
+def _as_model_view(t):
+    """t as the model hands q, k and v over: a (B, S, H, D) tensor seen as
+    (B, H, S, D)."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
 def _check(dtype, Sq, Sk, D, causal, kv_valid_len=None, B=1, H=2,
-           dev=None, v_transposed=False):
+           dev=None, v_transposed=False, qkv_views=False):
     q, k, v, do = _inputs(dev, dtype, B, H, Sq, Sk, D)
-    if v_transposed:  # as the model hands v over: a (B, S, H, D) view
-        v = v.transpose(1, 2).contiguous().transpose(1, 2)
+    if v_transposed or qkv_views:
+        v = _as_model_view(v)
+    if qkv_views:
+        q, k = _as_model_view(q), _as_model_view(k)
     scale = 1 / math.sqrt(D)
     counts = dict(fa.launch_counts)
     out, lse = fa._flash_forward(q, k, v, scale, causal, 512, 512,
@@ -107,6 +115,18 @@ def test_training_shape(cuda):
            v_transposed=True)
 
 
+@pytest.mark.parametrize("shape", [
+    pytest.param((2, 16, 2048, 2048, 128), id="training"),
+    pytest.param((1, 3, 200, 333, 72), id="ragged"),
+])
+def test_qkv_views(cuda, shape):
+    """q, k and v all as the model hands them over, (B, S, H, D) views,
+    which the forward's TMA loads take with their own strides."""
+    B, H, Sq, Sk, D = shape
+    _check(torch.bfloat16, Sq, Sk, D, True, B=B, H=H, dev=cuda,
+           qkv_views=True)
+
+
 def test_autograd_function_matches_plain_attention(cuda):
     q, k, v, do = _inputs(cuda, torch.float32, 2, 3, 100, 100, 32)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -115,6 +135,19 @@ def test_autograd_function_matches_plain_attention(cuda):
     fa.mha_reference(*refs, causal=True).backward(do)
     for a, b in zip(leaves, refs):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [pytest.param(64, id="f32"),
+                               pytest.param(256, id="bf16-D256")])
+def test_fma_forward_takes_a_negative_scale(cuda, D):
+    """The FMA kernels scale each score before the row max, so they take
+    any scale; only the wgmma forward (bf16, D <= 128) refuses one <= 0."""
+    dtype = torch.float32 if D == 64 else torch.bfloat16
+    q, k, v, _ = _inputs(cuda, dtype, 1, 2, 129, 129, D)
+    out, lse = fa._flash_forward(q, k, v, -0.1, True, 64, 64)
+    want, want_lse = fa.flash_forward_reference(q, k, v, -0.1, True, 64, 64)
+    _assert_close(out, want, FWD_TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=FWD_TOL, atol=FWD_TOL)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -132,3 +165,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fa._flash_forward(q, k, v, 0.1, False, 64, 64, kv_valid_len=0)
     with pytest.raises(ValueError, match="is torch.bfloat16"):
         fa._flash_forward(q, k.bfloat16(), v, 0.1, True, 64, 64)
+    # bf16 with D <= 128 loads through TMA: a base one element past a
+    # 16-byte boundary is refused, never sent to another kernel.
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    shifted = torch.empty(qb.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(qb.shape)
+    shifted.copy_(qb)
+    with pytest.raises(ValueError, match="TMA"):
+        fa._flash_forward(shifted, kb, vb, 0.1, True, 64, 64)
+    with pytest.raises(ValueError, match="positive"):
+        fa._flash_forward(qb, kb, vb, -0.1, True, 64, 64)
