@@ -14,10 +14,11 @@ Phases, in order; a failure in any of them ends the run with an error:
              and bf16, against their plain versions (tolerance 2e-4 f32,
              2e-2 bf16). Times are medians of CUDA-event timings with
              the L2 cache flushed before each launch, as a decode step
-             finds it; the bound is the bytes the call must move over
-             the card's memory rate; the library yardstick is a page
-             gather plus F.scaled_dot_product_attention (not used by the
-             port).
+             finds it, read twice (Timer: ms, and busy_ms with the
+             host's launch latency kept out); the bound is the bytes the
+             call must move over the card's memory rate; the library
+             yardstick is a page gather plus
+             F.scaled_dot_product_attention (not used by the port).
 3. parity  - LLAMA3_8B widths at 2 layers in f32: the dense-cache
              Generator (no kernel) and the paged LLMEngine (kernel)
              decode 16 greedy tokens for 4 prompts and must agree; a
@@ -32,13 +33,14 @@ Phases, in order; a failure in any of them ends the run with an error:
 5. flash   - the flash attention kernels (forward; backward = delta
              pre-pass, dK/dV and dQ kernels) against their plain
              versions: f32 and bf16, causal or not, D in {64, 128}, S in
-             {1, 129, 2048}, one Sq != Sk case and one kv_valid_len case,
-             q, k and v as the model's (B, S, H, D) views (tolerances
-             2e-5 forward / 1e-4 grads in f32; in bf16 each tensor is
-             held to |err| <= 2^-6 |ref| + rms(ref) / 32, see bf16_err),
-             then the training shape (B 2, H 16, S 2048, D 128, causal,
-             bf16) with contiguous inputs and with the views, the views
-             timed as in phase 2; the library yardstick is
+             {1, 129, 2048}, Sq != Sk cases (one at D 72) and one
+             kv_valid_len case, q, k and v as the model's (B, S, H, D)
+             views (tolerances 2e-5 forward / 1e-4 grads in f32; in bf16
+             each tensor is held to |err| <= 2^-6 |ref| + rms(ref) / 32,
+             see bf16_err), then the training shape (B 2, H 16, S 2048,
+             D 128, causal, bf16) with contiguous inputs and with the
+             views, two backward calls bitwise equal, the views timed as
+             in phase 2; the library yardstick is
              F.scaled_dot_product_attention (forward, and forward plus
              backward), not used by the port.
 6. train parity - the training cell's widths at 2 layers, from
@@ -137,16 +139,27 @@ def peaks(name: str):
 
 
 class Timer:
-    """Median CUDA-event time of fn, the L2 cache flushed before each run."""
+    """Median CUDA-event time of fn, the L2 cache flushed before each run.
+
+    Two readings. The plain one (`ms`) records the start event right after
+    the flush, so where the host takes longer to reach fn's launches than
+    the card takes to flush, host time is in it. The busy one (`busy_ms`)
+    keeps the card spinning for about a millisecond after the flush
+    (`torch.cuda._sleep`), so that fn's launches are queued before the
+    start event is reached: device time only."""
+
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self):
         self._flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, reps: int = 25) -> float:
+    def __call__(self, fn, reps: int = 25, busy: bool = False) -> float:
         fn()
         times = []
         for _ in range(reps):
             self._flush.zero_()
+            if busy:
+                torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -155,6 +168,17 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    def row(self, kernel, plain, library, plain_reps: int = 25) -> dict:
+        """The timed keys of a kernels-line row."""
+        return {"ms": self(kernel), "busy_ms": self(kernel, busy=True),
+                "plain_ms": self(plain, reps=plain_reps),
+                "library_ms": self(library),
+                "library_busy_ms": self(library, busy=True)}
+
+
+TIMED = ("max_abs_err", "ms", "busy_ms", "plain_ms", "bound_ms", "library_ms",
+         "library_busy_ms")
 
 
 def kernel_inputs(B: int, dtype, seed: int):
@@ -273,12 +297,10 @@ def kernel_phase(card: str) -> dict:
                     cases.items():
                 row = {"name": name, "route": "cuda", "source": SOURCE,
                        "replaces": KERNELS[name], "max_abs_err": err,
-                       "ms": timer(kernel), "plain_ms": timer(plain),
                        "bound_ms": bound, "bound_by": by,
-                       "library_ms": timer(library)}
+                       **timer.row(kernel, plain, library)}
                 log(f"kernel {name} B={B} {str(dtype)[6:]}: " + json.dumps(
-                    {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "library_ms")}))
+                    {k: row[k] for k in TIMED}))
                 if B == MAX_BATCH and dtype == torch.bfloat16:
                     rows[name] = row
     return rows
@@ -495,11 +517,17 @@ def flash_kernel_phase(card: str) -> dict:
                     flash_case(dtype, 1, 2, S, S, D, causal)
         flash_case(dtype, 1, 2, 200, 333, 128, True)
         flash_case(dtype, 1, 2, 300, 333, 128, False, kv_valid_len=250)
+        flash_case(dtype, 1, 2, 333, 200, 72, True)
 
     B, H, S, D = TRAIN_B, TRAIN_CFG.n_heads, TRAIN_S, TRAIN_CFG.head_dim
     dtype, scale = torch.bfloat16, 1 / math.sqrt(D)
     flash_case(dtype, B, H, S, S, D, True, views=False)
     (q, k, v, do), res, err, grad_err = flash_case(dtype, B, H, S, S, D, True)
+    first, again = (fa._flash_backward(scale, True, 512, 512, None, res, do)
+                    for _ in range(2))
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("two backward calls gave different grads")
+    log("flash backward: two calls give bitwise equal dq, dk, dv")
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
 
     def library_fwd_bwd():
@@ -525,12 +553,10 @@ def flash_kernel_phase(card: str) -> dict:
         bound, by = flash_bound_ms(B, H, S, S, D, True, dtype, card, backward)
         rows[name] = {"name": name, "route": "cuda", "source": FLASH_SOURCE,
                       "replaces": FLASH_KERNELS[name], "max_abs_err": err,
-                      "ms": timer(kernel), "plain_ms": timer(plain, reps=5),
                       "bound_ms": bound, "bound_by": by,
-                      "library_ms": timer(library)}
+                      **timer.row(kernel, plain, library, plain_reps=5)}
         log(f"kernel {name} B={B} H={H} S={S} D={D} causal bf16: "
-            + json.dumps({k: rows[name][k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}))
+            + json.dumps({k: rows[name][k] for k in TIMED}))
     return rows
 
 

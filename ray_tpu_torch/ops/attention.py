@@ -4,9 +4,9 @@ Port of ray_tpu/ops/attention.py. The Pallas forward `_flash_fwd_kernel`
 and the blockwise `lax.scan` backward become one CUDA source,
 `csrc/flash_attention.cu`: a forward kernel, and a backward of a dK/dV
 kernel and a dQ kernel (with a small pre-pass for delta). bf16 inputs with
-head dims up to 128 run on the tensor cores, the forward on wgmma with
-TMA loads (so its inputs must suit TMA, see `tma_layout_problem`); f32
-inputs run exact f32 FMAs.
+head dims up to 128 run on wgmma with TMA loads, forward and backward (so
+their inputs must suit TMA, see `tma_layout_problem`); f32 inputs run
+exact f32 FMAs.
 `flash_attention` is a `torch.autograd.Function` over them, as the JAX
 function is a `custom_vjp` whose residuals are (q, k, v, out, lse).
 
@@ -60,6 +60,8 @@ def _kernels():
                                   ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
                                   f32, i32, i32, ptr]
         lib.flash_bwd.restype = i32
+        lib.flash_bwd_scratch_floats.argtypes = [i32, i32, i32, i32, i32]
+        lib.flash_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.flash_error_string.argtypes = [i32]
         lib.flash_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -192,26 +194,42 @@ def flash_backward_reference(sm_scale, causal, block_q, block_k,
 def tma_layout_problem(t) -> str | None:
     """Why TMA cannot load the (B, H, S, D) tensor t, or None if it can.
 
-    TMA takes a base aligned to 16 bytes and strides that are multiples of
-    16 bytes. A dim of size 1 is never stepped over, so its stride does
-    not matter. A contiguous tensor with D % 8 == 0 suits, and so do the
-    model's (B, S, H, D) projections seen as (B, H, S, D)."""
+    TMA takes a base aligned to 16 bytes and strides that are nonzero
+    multiples of 16 bytes. A dim of size 1 is never stepped over, so its
+    stride does not matter. A contiguous tensor with D % 8 == 0 suits,
+    and so do the model's (B, S, H, D) projections seen as (B, H, S, D);
+    an expanded tensor (a zero stride) does not."""
     if t.data_ptr() % 16:
         return (f"its data starts {t.data_ptr() % 16} bytes past a 16-byte "
                 "boundary")
     item = t.element_size()
     for name, size, stride in zip(("batch", "head", "seq"), t.shape[:3],
                                   t.stride()[:3]):
+        if size > 1 and stride == 0:
+            return f"its {name} stride is 0 (an expanded tensor)"
         if size > 1 and stride * item % 16:
             return (f"its {name} stride of {stride} elements is not a "
                     "multiple of 16 bytes")
     return None
 
 
-def _check(q, k, v, kv_valid_len, more=(), tma=False):
-    """Raises unless the kernels take these tensors; returns kv_len.
-    `tma`: the tensors go to the forward, which loads bf16 with D <= 128
-    through TMA."""
+def grad_for_kernels(do):
+    """The output's gradient as the backward kernels take it: `do` itself
+    where its last dim is contiguous and TMA can load it, else a
+    contiguous copy in a new allocation. Autograd chooses this layout (an
+    expanded gradient, the backward of a sum, has zero strides), so the
+    autograd function copies; `_flash_backward`, called with a layout of
+    the caller's choosing, refuses one that does not suit."""
+    if do.stride(-1) != 1 or tma_layout_problem(do):
+        # a fresh allocation: .contiguous() keeps a misaligned base
+        return do.clone(memory_format=torch.contiguous_format)
+    return do
+
+
+def _check(q, k, v, kv_valid_len, more=()):
+    """Raises unless the kernels take these tensors; returns kv_len. With
+    bf16 and D <= 128 every tensor is held to the TMA rule (the kernels
+    load q, k, v and do through TMA)."""
     if q.device.type != "cuda":
         raise ValueError(
             f"flash attention kernel needs CUDA or CPU tensors, got {q.device}")
@@ -238,11 +256,10 @@ def _check(q, k, v, kv_valid_len, more=(), tma=False):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
         problem = tma_layout_problem(t) \
-            if tma and q.dtype == torch.bfloat16 and D <= 128 else None
+            if q.dtype == torch.bfloat16 and D <= 128 else None
         if problem:
-            raise ValueError(f"{name} does not suit the forward kernel's TMA "
-                             f"loads: {problem} (.contiguous() makes it "
-                             "suit)")
+            raise ValueError(f"{name} does not suit the kernels' TMA loads: "
+                             f"{problem} (.contiguous() makes it suit)")
     Sk = k.shape[2]
     if Sq < 1 or Sk < 1:
         raise ValueError("empty sequence")
@@ -280,7 +297,7 @@ def _flash_forward(q, k, v, sm_scale: float, causal: bool,
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, sm_scale, causal, block_q,
                                        block_k, kv_valid_len)
-    kv_len = _check(q, k, v, kv_valid_len, tma=True)
+    kv_len = _check(q, k, v, kv_valid_len)
     B, H, Sq, D = q.shape
     if q.dtype == torch.bfloat16 and D <= 128 and not sm_scale > 0:
         raise ValueError(f"sm_scale {sm_scale}: the bf16 forward for D <= 128 "
@@ -303,7 +320,11 @@ def _flash_backward(sm_scale, causal, block_q, block_k, kv_valid_len, res,
                     do):
     """(dq, dk, dv) from the residuals res = (q, k, v, out, lse) and the
     output's gradient do, as the JAX `_flash_backward` takes them. Like
-    the forward, the kernels take (batch, head, seq) strides."""
+    the forward, the kernels take (batch, head, seq) strides; bf16 with
+    D <= 128 loads q, k, v and do through TMA and raises ValueError on a
+    layout that does not suit it (`tma_layout_problem`): the caller
+    chose the layout, so nothing is copied here (`grad_for_kernels`
+    makes autograd's gradient suit)."""
     q, k, v, out, lse = res
     if q.device.type == "cpu":
         return flash_backward_reference(sm_scale, causal, block_q, block_k,
@@ -319,8 +340,10 @@ def _flash_backward(sm_scale, causal, block_q, block_k, kv_valid_len, res,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _kernels()
+    delta = torch.empty(lib.flash_bwd_scratch_floats(
+        _DTYPE_CODES[q.dtype], B, H, Sq, D), dtype=torch.float32,
+        device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_bwd(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -344,13 +367,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        # autograd may hand over an expanded gradient (the backward of a
-        # sum): copy it only when its last dim is not contiguous.
-        if do.stride(-1) != 1:
-            do = do.contiguous()
         scale, causal, block_q, block_k = ctx.args
         dq, dk, dv = _flash_backward(scale, causal, block_q, block_k, None,
-                                     ctx.saved_tensors, do)
+                                     ctx.saved_tensors, grad_for_kernels(do))
         return dq, dk, dv, None, None, None, None
 
 

@@ -25,26 +25,29 @@
 // kv_index do on the TPU. Any Sq and Sk: the last tile of each is
 // masked here, where the Pallas wrapper shrinks its blocks to divisors
 // of S (and a prime S to one block); tile sizes change only the order
-// of f32 sums. The backward has no atomics: a dK/dV kernel owns one key
-// tile and loops over the q tiles at and below the diagonal; a dQ kernel
-// owns one q tile and loops over key tiles. Both recompute P and dS, so
-// the backward does 7 tile products where a kernel with atomic dQ
-// updates would do 5; the result is deterministic. A small pre-pass
-// computes delta.
+// of f32 sums. The backward has no atomics: a dK/dV kernel owns a block
+// of keys and loops over the q tiles at and below the diagonal; a dQ
+// kernel owns a block of q rows and loops over key tiles. Both recompute
+// P and dS, so the backward does 7 tile products where a kernel with
+// atomic dQ updates would do 5; the result is deterministic. A small
+// pre-pass computes delta.
 //
 // Bound. At the training shapes (B 2, H 16, S 2048, D 128, causal,
 // bf16) the forward does 4 * B * H * D * sum(keys per row) = 3.44e10
 // flops: 34.8 us at 989 TFLOP/s, against 67 MB of q, k, v and out, 20 us
-// at 3.35 TB/s. It is bound by operations. The backward does about 2.5x
-// the forward's products, about 87 us. Two designs meet that bound:
+// at 3.35 TB/s. It is bound by operations. The backward's function has
+// 5 tile products, 2.5x the forward's flops, about 87 us; the kernels
+// below do 7 (they recompute S and dP on both sides). Two designs:
 //
-// - bf16 with D <= 128 (the training path): every tile product on the
-//   tensor cores. The forward runs wgmma on tiles that TMA loads, three
-//   stages deep (namespace wg); the inputs must suit TMA: a 16-byte
-//   aligned base and (batch, head, seq) strides that are multiples of 8
-//   elements. The backward runs mma.sync m16n8k16 on tiles loaded through
-//   registers (namespace tc). In both the score accumulators are reused in
-//   registers as the operand of the next product.
+// - bf16 with D <= 128 (the training path): every tile product on wgmma,
+//   on tiles that TMA loads into the 128-byte swizzle, three stages deep
+//   (namespace wg): the forward, and the backward's dQ and dK/dV kernels.
+//   The inputs must suit TMA: a 16-byte aligned base and (batch, head,
+//   seq) strides that are multiples of 8 elements. Score accumulators are
+//   reused in registers as the A operand of the next product. What is
+//   left: no producer warp or register reallocation, and in each
+//   warpgroup the exponentials run beside only the other warpgroup's
+//   products (ROADMAP queue B).
 // - f32 (and bf16 with D > 128): every product an f32 FMA on the CUDA
 //   cores, exact as the 2e-5 and 1e-4 tolerances of the JAX tests need
 //   (TF32 could not meet them), from f32 tiles in shared memory; 256
@@ -54,7 +57,7 @@
 //   that column reads hit distinct banks. Its bound is the 67 TFLOP/s of
 //   f32 FMA.
 //
-// Both schedule the longest causal q tiles first.
+// All schedule the longest causal tiles first.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -285,23 +288,37 @@ __global__ void __launch_bounds__(kThreads, DMAX <= 128 ? 2 : 1)
 // Backward.
 // ---------------------------------------------------------------------------
 
-// delta = rowsum(dO * O) in f32: one warp per row of (B, H, Sq).
-template <typename T>
+// delta = rowsum(dO * O) in f32: one warp per row. The FMA kernels read
+// it as (B, H, Sq). The wgmma kernels (kTiled) read, for each 64-row q
+// tile of each (batch, head), 64 floats of lse * log2(e) and then 64 of
+// delta, rows past Sq padded with 1e30 and 0 (so their P is 0).
+template <typename T, bool kTiled>
 __global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(
     const Args a) {
   const int lane = threadIdx.x & 31;
   const long long row =
       (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= (long long)a.B * a.H * a.Sq) return;  // the whole warp
-  const int s = (int)(row % a.Sq);
-  const int bh = (int)(row / a.Sq);
-  const T* o = head<T>(a.o, bh / a.H, bh % a.H) + s * a.o.ss;
-  const T* g = head<T>(a.dout, bh / a.H, bh % a.H) + s * a.dout.ss;
+  const int S = kTiled ? (a.Sq + 63) / 64 * 64 : a.Sq;
+  if (row >= (long long)a.B * a.H * S) return;  // the whole warp
+  const int s = (int)(row % S);
+  const int bh = (int)(row / S);
   float sum = 0.f;
-  for (int d = lane; d < a.D; d += 32)
-    sum = fmaf(to_float(o[d]), to_float(g[d]), sum);
+  if (s < a.Sq) {
+    const T* o = head<T>(a.o, bh / a.H, bh % a.H) + s * a.o.ss;
+    const T* g = head<T>(a.dout, bh / a.H, bh % a.H) + s * a.dout.ss;
+    for (int d = lane; d < a.D; d += 32)
+      sum = fmaf(to_float(o[d]), to_float(g[d]), sum);
+  }
   sum = warp_sum(sum);
-  if (lane == 0) a.delta[row] = sum;
+  if (lane != 0) return;
+  if (kTiled) {
+    float* st = a.delta + ((size_t)bh * (S / 64) + s / 64) * 128 + s % 64;
+    st[0] = s < a.Sq ? a.lse[(size_t)bh * a.Sq + s] * 1.4426950408889634f
+                     : 1e30f;
+    st[64] = sum;
+  } else {
+    a.delta[row] = sum;
+  }
 }
 
 // Rows [q0, q0 + BQ) of lse and delta into shared memory (0 past Sq).
@@ -517,36 +534,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core backward kernels: bf16 inputs, D <= 128.
-//
-// The backward's kernels with every tile product on mma.sync.m16n8k16
-// (bf16 operands, f32 accumulators). Four warps per block; each warp owns
-// 16 rows of the block's tile (q rows, or keys in the dK/dV kernel), so
-// a row's softmax state lives in the four lanes that hold it and row
-// reductions are two shuffles. Tiles sit in shared memory as bf16, rows
-// padded by 16 bytes so that fragment loads hit distinct banks. A score
-// tile's accumulators are, lane for lane, the A operand of the next
-// product (P.V, P^T dO, dS K, dS^T Q) once rounded to bf16 - which is
-// where JAX rounds P and dS - so P and dS never go through shared memory.
-// Head dims are padded to DP (64 or 128) with zero columns.
+// Fragment helpers of the tensor-core kernels (namespace wg). A wgmma
+// accumulator is laid out, warp by warp, as mma.sync's m16n8 C fragments:
+// g = lane / 4 and c = 2 (lane % 4) index rows (g and g + 8) and column
+// pairs. Two such 16 x 8 tiles, rounded to bf16, are lane for lane the A
+// operand of a 16-deep product from registers (P.V, dS K, P^T dO,
+// dS^T Q), which is where JAX rounds P and dS.
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 using bf16 = __nv_bfloat16;
-
-// C += A B for one 16 x 8 x 16 tile; fragments as the PTX ISA lays them
-// out: g = lane / 4 and c = 2 (lane % 4) index rows and column pairs.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ uint32_t pair(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
@@ -555,37 +553,6 @@ __device__ __forceinline__ uint32_t pair(bf16 lo, bf16 hi) {
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return pair(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of rows [r0, r0 + 16), columns [c0, c0 + 16) of tile t.
-__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const bf16* t,
-                                       int ldt, int r0, int c0, int lane) {
-  const int g = lane >> 2, c = (lane & 3) * 2;
-  f[0] = ld32(t + (r0 + g) * ldt + c0 + c);
-  f[1] = ld32(t + (r0 + g + 8) * ldt + c0 + c);
-  f[2] = ld32(t + (r0 + g) * ldt + c0 + c + 8);
-  f[3] = ld32(t + (r0 + g + 8) * ldt + c0 + c + 8);
-}
-
-// B fragment with B[k][n] = t[n0 + n][k0 + k]: a transposed tile (K^T).
-__device__ __forceinline__ void frag_bt(uint32_t (&f)[2], const bf16* t,
-                                        int ldt, int n0, int k0, int lane) {
-  const int g = lane >> 2, c = (lane & 3) * 2;
-  f[0] = ld32(t + (n0 + g) * ldt + k0 + c);
-  f[1] = ld32(t + (n0 + g) * ldt + k0 + c + 8);
-}
-
-// B fragment with B[k][n] = t[k0 + k][n0 + n]: a tile as it is (V).
-__device__ __forceinline__ void frag_b(uint32_t (&f)[2], const bf16* t,
-                                       int ldt, int k0, int n0, int lane) {
-  const int g = lane >> 2, c = (lane & 3) * 2;
-  const bf16* col = t + n0 + g;
-  f[0] = pair(col[(k0 + c) * ldt], col[(k0 + c + 1) * ldt]);
-  f[1] = pair(col[(k0 + c + 8) * ldt], col[(k0 + c + 9) * ldt]);
 }
 
 // The A operand of a 16 x 16 product from two 16 x 8 accumulator tiles.
@@ -605,85 +572,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Rows [r0, r0 + rows) of one head, columns [0, DP), into a bf16 tile
-// with row stride ldt; zero past `limit` rows and past D columns. 16-byte
-// loads where the head's rows allow them (the common case), else 2-byte.
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, int ldt, const bf16* src,
-                                          long long ss, int r0, int rows,
-                                          int limit, int D) {
-  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && ss % 8 == 0) {
-    constexpr int kChunks = DP / 8;
-    for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i - r * kChunks) * 8;
-      const int gr = r0 + r;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (gr < limit && c < D)
-        v = *reinterpret_cast<const uint4*>(src + gr * ss + c);
-      *reinterpret_cast<uint4*>(dst + r * ldt + c) = v;
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * DP; i += kThreads) {
-      const int r = i / DP, c = i - r * DP;
-      const int gr = r0 + r;
-      dst[r * ldt + c] = gr < limit && c < D ? src[gr * ss + c]
-                                             : __float2bfloat16(0.f);
-    }
-  }
-}
-
-template <int BQ>
-__device__ __forceinline__ void load_stats(const Args& a, size_t bh, int q0,
-                                           float* lse_s, float* delta_s) {
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    const int row = q0 + r;
-    lse_s[r] = row < a.Sq ? a.lse[bh * a.Sq + row] : 0.f;
-    delta_s[r] = row < a.Sq ? a.delta[bh * a.Sq + row] : 0.f;
-  }
-}
-
-// acc[j] = A B^T over the head dim for 16 rows of `at` (from row r0) and
-// 8 j rows of `bt`: the scores Q K^T, dO V^T, K Q^T or V dO^T.
-template <int DP, int NJ>
-__device__ __forceinline__ void scores(float (&acc)[NJ][4], const bf16* at,
-                                       const bf16* bt, int ldt, int r0,
-                                       int lane) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP; kk += 16) {
-    uint32_t fa[4];
-    frag_a(fa, at, ldt, r0, kk, lane);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      uint32_t fb[2];
-      frag_bt(fb, bt, ldt, j * 8, kk, lane);
-      mma(acc[j], fa, fb);
-    }
-  }
-}
-
-// acc[n] += P M over NK / 2 16-row steps, with P given as accumulator
-// tiles p[NK] (16 x 8 each) and M a tile of NK * 8 rows by DP columns.
-template <int DP, int NK>
-__device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4],
-                                           const float (&p)[NK][4],
-                                           const bf16* m, int ldt, int lane) {
-#pragma unroll
-  for (int t = 0; t < NK / 2; ++t) {
-    uint32_t fa[4];
-    acc_to_a(fa, p[2 * t], p[2 * t + 1]);
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      uint32_t fb[2];
-      frag_b(fb, m, ldt, t * 16, n * 8, lane);
-      mma(acc[n], fa, fb);
-    }
-  }
 }
 
 // Writes rows r0 + g and r0 + g + 8 (below `limit`) of a warp's 16 x D
@@ -706,138 +594,6 @@ __device__ __forceinline__ void store_rows(bf16* out, int r0, int limit,
       }
     }
   }
-}
-
-constexpr int kDqBQ = kWarps * 16, kDqBK = 64;
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_tc_kernel(const Args a) {
-  constexpr int BQ = kDqBQ, BK = kDqBK, LDT = DP + 8, NJ = BK / 8;
-  extern __shared__ float smem[];
-  float* lse_s = smem;                           // BQ
-  float* delta_s = lse_s + BQ;                   // BQ
-  bf16* q_s = reinterpret_cast<bf16*>(delta_s + BQ);  // BQ x LDT
-  bf16* do_s = q_s + BQ * LDT;                   // BQ x LDT
-  bf16* k_s = do_s + BQ * LDT;                   // BK x LDT
-  bf16* v_s = k_s + BK * LDT;                    // BK x LDT
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
-  const int g = lane >> 2, c = (lane & 3) * 2;
-  const int h = blockIdx.y, b = blockIdx.z, D = a.D;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
-  const size_t bh = (size_t)b * a.H + h;
-  const bf16* k = head<bf16>(a.k, b, h);
-  const bf16* v = head<bf16>(a.v, b, h);
-  const int q_end = min(q0 + BQ, a.Sq);
-  const int k_end = a.causal ? min(a.kv_len, q_end) : a.kv_len;
-  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-
-  load_tile<DP>(q_s, LDT, head<bf16>(a.q, b, h), a.q.ss, q0, BQ, a.Sq, D);
-  load_tile<DP>(do_s, LDT, head<bf16>(a.dout, b, h), a.dout.ss, q0, BQ,
-                a.Sq, D);
-  load_stats<BQ>(a, bh, q0, lse_s, delta_s);
-  __syncthreads();
-  const float lse[2] = {lse_s[r0 + g], lse_s[r0 + g + 8]};
-  const float delta[2] = {delta_s[r0 + g], delta_s[r0 + g + 8]};
-
-  float dq[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous key tile is read
-    load_tile<DP>(k_s, LDT, k, a.k.ss, k0, BK, a.Sk, D);
-    load_tile<DP>(v_s, LDT, v, a.v.ss, k0, BK, a.Sk, D);
-    __syncthreads();
-
-    float s[NJ][4], dp[NJ][4];
-    scores<DP, NJ>(s, q_s, k_s, LDT, r0, lane);
-    scores<DP, NJ>(dp, do_s, v_s, LDT, r0, lane);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float x = masked(a, rows[r], k0 + j * 8 + c + (e & 1))
-                            ? kNegInf
-                            : s[j][e] * a.scale;
-        const float p = rows[r] < a.Sq ? expf(x - lse[r]) : 0.f;
-        dp[j][e] = p * (dp[j][e] - delta[r]) * a.scale;  // dS
-      }
-    accumulate<DP, NJ>(dq, dp, k_s, LDT, lane);  // dS rounded to bf16 here
-  }
-
-  store_rows<DP>(static_cast<bf16*>(a.dq) + bh * a.Sq * D, q0 + r0, a.Sq, D,
-                 dq, lane);
-}
-
-// dK/dV: 64 keys per block, 16 per warp; q tiles of 32 rows keep the
-// two score tiles, dK and dV in registers.
-constexpr int kKvBK = kWarps * 16, kKvBQ = 32;
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_tc_kernel(const Args a) {
-  constexpr int BQ = kKvBQ, BK = kKvBK, LDT = DP + 8, NJ = BQ / 8;
-  extern __shared__ float smem[];
-  float* lse_s = smem;                           // BQ
-  float* delta_s = lse_s + BQ;                   // BQ
-  bf16* k_s = reinterpret_cast<bf16*>(delta_s + BQ);  // BK x LDT
-  bf16* v_s = k_s + BK * LDT;                    // BK x LDT
-  bf16* q_s = v_s + BK * LDT;                    // BQ x LDT
-  bf16* do_s = q_s + BQ * LDT;                   // BQ x LDT
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
-  const int g = lane >> 2, c = (lane & 3) * 2;
-  const int h = blockIdx.y, b = blockIdx.z, D = a.D;
-  const int k0 = blockIdx.x * BK;
-  const size_t bh = (size_t)b * a.H + h;
-  const bf16* q = head<bf16>(a.q, b, h);
-  const bf16* dout = head<bf16>(a.dout, b, h);
-  const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-
-  float dk[DP / 8][4], dv[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  if (k0 < a.kv_len) {  // keys past kv_len have P = 0: no gradient
-    load_tile<DP>(k_s, LDT, head<bf16>(a.k, b, h), a.k.ss, k0, BK, a.Sk, D);
-    load_tile<DP>(v_s, LDT, head<bf16>(a.v, b, h), a.v.ss, k0, BK, a.Sk, D);
-    // Causal: rows above this tile's first key see none of its keys.
-    for (int q0 = a.causal ? k0 / BQ * BQ : 0; q0 < a.Sq; q0 += BQ) {
-      __syncthreads();  // the previous q tile is read
-      load_tile<DP>(q_s, LDT, q, a.q.ss, q0, BQ, a.Sq, D);
-      load_tile<DP>(do_s, LDT, dout, a.dout.ss, q0, BQ, a.Sq, D);
-      load_stats<BQ>(a, bh, q0, lse_s, delta_s);
-      __syncthreads();
-
-      // Transposed scores: rows are this warp's keys, columns q rows.
-      float st[NJ][4], dpt[NJ][4];
-      scores<DP, NJ>(st, k_s, q_s, LDT, r0, lane);
-      scores<DP, NJ>(dpt, v_s, do_s, LDT, r0, lane);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qr = j * 8 + c + (e & 1), row = q0 + qr;
-          const float x =
-              masked(a, row, keys[e >> 1]) ? kNegInf : st[j][e] * a.scale;
-          const float p = row < a.Sq ? expf(x - lse_s[qr]) : 0.f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - delta_s[qr]) * a.scale;  // dS^T
-        }
-      accumulate<DP, NJ>(dv, st, do_s, LDT, lane);  // P^T dO
-      accumulate<DP, NJ>(dk, dpt, q_s, LDT, lane);  // dS^T Q
-    }
-  }
-
-  store_rows<DP>(static_cast<bf16*>(a.dk) + bh * a.Sk * D, k0 + r0, a.Sk, D,
-                 dk, lane);
-  store_rows<DP>(static_cast<bf16*>(a.dv) + bh * a.Sk * D, k0 + r0, a.Sk, D,
-                 dv, lane);
 }
 
 }  // namespace tc
@@ -982,6 +738,17 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : WG_ACC8(0), WG_ACC8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64) = or += A B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC8(0)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -1251,6 +1018,388 @@ __global__ void __launch_bounds__(kThreads, 1)
                      a.D, o, lane);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward for D <= 128 on wgmma and TMA: a dQ kernel and a dK/dV
+// kernel, after a pre-pass that writes each 64-row q tile's row stats,
+// lse * log2(e) and delta, as 128 contiguous floats (rows past Sq: 1e30
+// and 0, so that their P is exactly 0).
+//
+// Each block is two warpgroups that own 128 rows, 64 each: q rows in the
+// dQ kernel, keys in the dK/dV kernel. TMA loads those rows' two tiles
+// once (Q and dO, or K and V) and streams the other side's two tiles of
+// 64 rows (K and V, or Q and dO, with the q tile's stats by a bulk copy)
+// through a ring of three stages, refilled as in the forward. Every tile
+// product is one of the forward's two wgmma forms:
+//   dQ kernel     S = Q K^T, dP = dO V^T     ss, m64n64k16, K-major;
+//                 dQ += dS K                 rs, dS from registers, K
+//                                            MN-major (as the forward's V);
+//   dK/dV kernel  S^T = K Q^T, dP^T = V dO^T ss, m64n64k16, K-major;
+//                 dV += P^T dO, dK += dS^T Q rs, dO and Q MN-major.
+// P = exp2(s * scale * log2(e) - lse * log2(e)), one FFMA and ex2, with
+// no row max, so any scale works; masked elements (above the diagonal, at
+// keys >= kv_len), tested only on tiles that cross either, get P = 0.
+// P is rounded to bf16 for dV, dS = P (dP - delta) scale to bf16 for dQ
+// and dK, as JAX rounds them. No atomics: both kernels recompute P, 7
+// tile products where 5 would do, and the grads are deterministic.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdRows = 128;  // a block's own rows
+constexpr int kBwdTile = 64;   // rows of a streamed tile
+constexpr int kStatFloats = 2 * kBwdTile;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DP>
+constexpr size_t bwd_smem_bytes() {
+  // Two tiles of the block's rows, the ring of two streamed tiles and
+  // their stats a stage, mbarriers and counters, slack to align to 1024.
+  return (size_t)(2 * kBwdRows + 2 * kStages * kBwdTile) * DP * sizeof(bf16) +
+         kStages * kStatFloats * sizeof(float) + 64 + 1024;
+}
+
+// `bytes` contiguous bytes from global memory, counted on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A tile of ROWS rows from s0 (its 64-column atoms one after another).
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_rows_tma(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int s0, int h,
+                                              int b) {
+#pragma unroll
+  for (int t = 0; t < DP / kAtomCols; ++t)
+    tma_load(dst + t * ROWS * kRowBytes, map, bar, t * kAtomCols, s0, h, b);
+}
+
+// d (64 x 64) = A B^T over DP: A this warpgroup's 64 of a 128-row tile,
+// B a 64-row tile, both K-major. Issued, not committed.
+template <int DP>
+__device__ __forceinline__ void issue_ss64(float (&d)[8][4], uint32_t a_wg,
+                                           uint32_t b_t) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t col = (kk & 3) * 32;
+    wgmma_ss_n64(d,
+                 desc(a_wg + (kk >> 2) * kBwdRows * kRowBytes + col, 16, 1024),
+                 desc(b_t + (kk >> 2) * kBwdTile * kRowBytes + col, 16, 1024),
+                 kk > 0);
+  }
+}
+
+// d (64 x DP) += A B over 64 rows of B: A from registers, B a 64-row
+// tile read MN-major. Issued, not committed.
+template <int NO>
+__device__ __forceinline__ void issue_rs64(
+    float (&d)[NO][4], const uint32_t (&a)[kBwdTile / 16][4], uint32_t b_t) {
+#pragma unroll
+  for (int t = 0; t < kBwdTile / 16; ++t)
+    wgmma_rs(d, a[t],
+             desc(b_t + t * 16 * kRowBytes, kBwdTile * kRowBytes, 1024));
+}
+
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&f)[N / 2][4],
+                                       const float (&acc)[N][4]) {
+#pragma unroll
+  for (int t = 0; t < N / 2; ++t)
+    tc::acc_to_a(f[t], acc[2 * t], acc[2 * t + 1]);
+}
+
+// Counts this warp done with stage `st`; the last of the block's eight
+// warps refills it (`refill`). No warp waits for another.
+template <typename Refill>
+__device__ __forceinline__ void release(unsigned* released, int st, int lane,
+                                        Refill refill) {
+  if (lane == 0) {
+    __threadfence_block();
+    if (atomicAdd(&released[st], 1) % (kThreads / 32) == kThreads / 32 - 1) {
+      __threadfence_block();
+      refill();
+    }
+  }
+}
+
+// dQ: one block per 128 q rows of a (batch, head), longest causal rows
+// first; loops over key tiles of 64.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap do_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const Args a) {
+  constexpr int BQ = kBwdRows, BK = kBwdTile, NJ = BK / 8;
+  constexpr uint32_t kOwnBytes = BQ * DP * sizeof(bf16);
+  constexpr uint32_t kTileBytes = BK * DP * sizeof(bf16);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023) & ~1023u;
+  const uint32_t do_s = q_s + kOwnBytes;
+  const uint32_t k_s = do_s + kOwnBytes;             // kStages tiles
+  const uint32_t v_s = k_s + kStages * kTileBytes;   // kStages tiles
+  const uint32_t bars = v_s + kStages * kTileBytes;  // own rows, then stages
+  unsigned* released = reinterpret_cast<unsigned*>(
+      smem_raw + (bars + 8 * (1 + kStages) - raw));
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int c = (lane & 3) * 2;
+  const int wgi = tid >> 7;
+  const int n_bh = a.B * a.H;
+  const int bh_i = blockIdx.x % n_bh, h = bh_i % a.H, b = bh_i / a.H;
+  const int q0 = (gridDim.x / n_bh - 1 - blockIdx.x / n_bh) * BQ;
+  const int r0 = q0 + wgi * 64 + ((tid >> 5) & 3) * 16;  // this warp's rows
+  const int rows[2] = {r0 + (lane >> 2), r0 + (lane >> 2) + 8};
+  const int q_end = min(q0 + BQ, a.Sq);
+  const int k_end = a.causal ? min(a.kv_len, q_end) : a.kv_len;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  auto edge = [&](int k0) {
+    return (a.causal && k0 + BK - 1 > r0) || k0 + BK > a.kv_len;
+  };
+  auto load_kv = [&](int j) {
+    const int st = j % kStages;
+    const uint32_t bar = bars + 8 * (1 + st);
+    mbar_expect_tx(bar, 2 * kTileBytes);
+    load_rows_tma<DP, BK>(k_s + st * kTileBytes, &k_map, bar, j * BK, h, b);
+    load_rows_tma<DP, BK>(v_s + st * kTileBytes, &v_map, bar, j * BK, h, b);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(bars + 8 * i);
+    for (int i = 0; i < kStages; ++i) released[i] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, 2 * kOwnBytes);
+    load_rows_tma<DP, BQ>(q_s, &q_map, bars, q0, h, b);
+    load_rows_tma<DP, BQ>(do_s, &do_map, bars, q0, h, b);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
+  }
+
+  // This thread's two rows: lse * log2(e) and delta from the pre-pass.
+  const size_t bh = (size_t)b * a.H + h;
+  const float* stats = a.delta + bh * ((a.Sq + BK - 1) / BK) * kStatFloats;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rows[r];
+    const float* st = stats + row / BK * kStatFloats + row % BK;
+    lse2[r] = row < a.Sq ? st[0] : 1e30f;
+    dl[r] = row < a.Sq ? st[kBwdTile] : 0.f;
+  }
+  const float sl2 = a.scale * kLog2e;
+  // s and dp of a key tile; dp becomes dS in place.
+  auto dscores = [&](float (&s)[NJ][4], float (&dp)[NJ][4], int k0) {
+    const bool e_k = edge(k0);
+#pragma unroll
+    for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, col = k0 + jn * 8 + c + (e & 1);
+        float p = exp2_approx(fmaf(s[jn][e], sl2, -lse2[r]));
+        if (e_k && ((a.causal && col > rows[r]) || col >= a.kv_len)) p = 0.f;
+        dp[jn][e] = p * (dp[jn][e] - dl[r]) * a.scale;
+      }
+  };
+
+  float dq[DP / 8][4], s[NJ][4], dp[NJ][4];
+  uint32_t ds_a[BK / 16][4];  // dS of the tile in hand, bf16, as wgmma's A
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  const uint32_t q_wg = q_s + wgi * 64 * kRowBytes;
+  const uint32_t do_wg = do_s + wgi * 64 * kRowBytes;
+  auto kv_full = [&](int j) {
+    return mbar_wait(bars + 8 * (1 + j % kStages), (j / kStages) & 1);
+  };
+  auto issue_scores = [&](int j) {
+    const uint32_t at = j % kStages * kTileBytes;
+    issue_ss64<DP>(s, q_wg, k_s + at);
+    issue_ss64<DP>(dp, do_wg, v_s + at);
+    wgmma_commit();
+  };
+
+  mbar_wait(bars, 0);
+  kv_full(0);
+  wgmma_fence();
+  issue_scores(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  dscores(s, dp, 0);
+  pack_a(ds_a, dp);  // dS rounded to bf16
+
+  // Each step issues tile j + 1's S and dP and then dQ += dS_j K_j, and
+  // forms dS_{j+1} while dQ's product runs. The last tile's product
+  // follows the loop, so that no branch in the loop decides what is in
+  // flight.
+  for (int j = 0; j + 1 < n_tiles; ++j) {
+    kv_full(j + 1);
+    fence_regs(dq);
+    wgmma_fence();
+    issue_scores(j + 1);
+    issue_rs64(dq, ds_a, k_s + j % kStages * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<1>();  // S and dP; dQ's product may still run
+    fence_regs(s);
+    fence_regs(dp);
+    dscores(s, dp, (j + 1) * BK);
+    wgmma_wait<0>();
+    fence_regs(dq);
+    pack_a(ds_a, dp);
+    if (j + kStages < n_tiles)
+      release(released, j % kStages, lane, [&] { load_kv(j + kStages); });
+  }
+  fence_regs(dq);
+  wgmma_fence();
+  issue_rs64(dq, ds_a, k_s + (n_tiles - 1) % kStages * kTileBytes);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dq);
+  tc::store_rows<DP>(static_cast<bf16*>(a.dq) + bh * a.Sq * a.D, r0, a.Sq,
+                     a.D, dq, lane);
+}
+
+// dK and dV: one block per 128 keys of a (batch, head), the keys with the
+// most causal q rows first; loops over q tiles of 64 from the block's
+// first key (causal) or 0.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map,
+                                const __grid_constant__ CUtensorMap q_map,
+                                const __grid_constant__ CUtensorMap do_map,
+                                const Args a) {
+  constexpr int BK = kBwdRows, BQ = kBwdTile, NJ = BQ / 8;
+  constexpr uint32_t kOwnBytes = BK * DP * sizeof(bf16);
+  constexpr uint32_t kTileBytes = BQ * DP * sizeof(bf16);
+  constexpr uint32_t kStatBytes = kStatFloats * sizeof(float);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t v_s = k_s + kOwnBytes;
+  const uint32_t q_s = v_s + kOwnBytes;               // kStages tiles
+  const uint32_t do_s = q_s + kStages * kTileBytes;   // kStages tiles
+  const uint32_t st_s = do_s + kStages * kTileBytes;  // kStages stats
+  const uint32_t bars = st_s + kStages * kStatBytes;  // own rows, then stages
+  const float* stats_s =
+      reinterpret_cast<const float*>(smem_raw + (st_s - raw));
+  unsigned* released = reinterpret_cast<unsigned*>(
+      smem_raw + (bars + 8 * (1 + kStages) - raw));
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int c = (lane & 3) * 2;
+  const int wgi = tid >> 7;
+  const int n_bh = a.B * a.H;
+  const int bh_i = blockIdx.x % n_bh, h = bh_i % a.H, b = bh_i / a.H;
+  const int k0 = blockIdx.x / n_bh * BK;
+  const int kw = k0 + wgi * 64 + ((tid >> 5) & 3) * 16;  // this warp's keys
+  const int keys[2] = {kw + (lane >> 2), kw + (lane >> 2) + 8};
+  // Causal: rows above the block's first key see none of its keys.
+  const int q_start = a.causal ? k0 : 0;
+  const int n_tiles = k0 < a.kv_len && q_start < a.Sq
+                          ? (a.Sq - q_start + BQ - 1) / BQ
+                          : 0;
+  auto edge = [&](int q0) {
+    return (a.causal && q0 < kw + 15) || kw + 16 > a.kv_len;
+  };
+  const size_t bh = (size_t)b * a.H + h;
+  const float* stats = a.delta + (bh * ((a.Sq + BQ - 1) / BQ) + q_start / BQ) *
+                                     kStatFloats;
+  auto load_qdo = [&](int i) {
+    const int st = i % kStages;
+    const uint32_t bar = bars + 8 * (1 + st);
+    mbar_expect_tx(bar, 2 * kTileBytes + kStatBytes);
+    load_rows_tma<DP, BQ>(q_s + st * kTileBytes, &q_map, bar,
+                          q_start + i * BQ, h, b);
+    load_rows_tma<DP, BQ>(do_s + st * kTileBytes, &do_map, bar,
+                          q_start + i * BQ, h, b);
+    bulk_load(st_s + st * kStatBytes, stats + i * kStatFloats, kStatBytes,
+              bar);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(bars + 8 * i);
+    for (int i = 0; i < kStages; ++i) released[i] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(bars, 2 * kOwnBytes);
+    load_rows_tma<DP, BK>(k_s, &k_map, bars, k0, h, b);
+    load_rows_tma<DP, BK>(v_s, &v_map, bars, k0, h, b);
+    for (int i = 0; i < kStages && i < n_tiles; ++i) load_qdo(i);
+  }
+
+  const float sl2 = a.scale * kLog2e;
+  float dk[DP / 8][4], dv[DP / 8][4], sc[NJ][4], dpt[NJ][4];
+  uint32_t p_a[BQ / 16][4], ds_a[BQ / 16][4];  // P^T and dS^T, bf16
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const uint32_t k_wg = k_s + wgi * 64 * kRowBytes;
+  const uint32_t v_wg = v_s + wgi * 64 * kRowBytes;
+  if (n_tiles > 0) mbar_wait(bars, 0);
+
+  // Each step issues tile i's S^T and dP^T behind tile i - 1's dV and dK
+  // products, waits for all, forms P^T and dS^T, and issues tile i's dV
+  // and dK products, which run while the next step waits for its tile.
+  for (int i = 0; i < n_tiles; ++i) {
+    const int sti = i % kStages;
+    const int q0 = q_start + i * BQ;
+    mbar_wait(bars + 8 * (1 + sti), (i / kStages) & 1);
+    fence_regs(dk);
+    fence_regs(dv);
+    wgmma_fence();
+    issue_ss64<DP>(sc, k_wg, q_s + sti * kTileBytes);
+    issue_ss64<DP>(dpt, v_wg, do_s + sti * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();  // and tile i - 1's dV and dK
+    fence_regs(sc);
+    fence_regs(dpt);
+    fence_regs(dk);
+    fence_regs(dv);
+    if (i > 0 && i - 1 + kStages < n_tiles) {
+      const int prev = (i - 1) % kStages;
+      release(released, prev, lane, [&] { load_qdo(i - 1 + kStages); });
+    }
+    // Rows of S^T are keys, columns q rows: each column's stats.
+    const float* lse2 = stats_s + sti * kStatFloats;
+    const bool e_q = edge(q0);
+#pragma unroll
+    for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = jn * 8 + c + (e & 1), key = keys[e >> 1];
+        float p = exp2_approx(fmaf(sc[jn][e], sl2, -lse2[qc]));
+        if (e_q && ((a.causal && key > q0 + qc) || key >= a.kv_len)) p = 0.f;
+        sc[jn][e] = p;
+        dpt[jn][e] = p * (dpt[jn][e] - lse2[kBwdTile + qc]) * a.scale;
+      }
+    pack_a(p_a, sc);   // P rounded to bf16
+    pack_a(ds_a, dpt);  // dS rounded to bf16
+    wgmma_fence();
+    issue_rs64(dv, p_a, do_s + sti * kTileBytes);
+    issue_rs64(dk, ds_a, q_s + sti * kTileBytes);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(dk);
+  fence_regs(dv);
+  tc::store_rows<DP>(static_cast<bf16*>(a.dk) + bh * a.Sk * a.D, kw, a.Sk,
+                     a.D, dk, lane);
+  tc::store_rows<DP>(static_cast<bf16*>(a.dv) + bh * a.Sk * a.D, kw, a.Sk,
+                     a.D, dv, lane);
+}
+
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
@@ -1269,11 +1418,12 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kTiled>
 cudaError_t delta_pass(const Args& a, cudaStream_t stream) {
   constexpr int kRowsPerBlock = kThreads / 32;
-  const long long rows = (long long)a.B * a.H * a.Sq;
-  return launch(flash_bwd_delta_kernel<T>,
+  const long long rows =
+      (long long)a.B * a.H * (kTiled ? (a.Sq + 63) / 64 * 64 : a.Sq);
+  return launch(flash_bwd_delta_kernel<T, kTiled>,
                 dim3((unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock)),
                 kThreads, 0, stream, a);
 }
@@ -1289,7 +1439,7 @@ cudaError_t run_fma(const Args& a, bool bwd, cudaStream_t stream) {
                   f * ((BQ + BK) * ld + BK * (size_t)a.D + BQ * (BK + 1)),
                   stream, a);
   }
-  cudaError_t err = delta_pass<T>(a, stream);
+  cudaError_t err = delta_pass<T, false>(a, stream);
   if (err != cudaSuccess) return err;
   {  // dK, dV: for D > 128 a 32-row q tile keeps four tiles in 227 KB
     constexpr int BQ = DMAX > 128 ? 32 : 64, BK = 64;
@@ -1379,24 +1529,53 @@ cudaError_t run_fwd_wgmma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename Kernel>
+cudaError_t launch_wgmma(Kernel kernel, size_t smem, unsigned blocks,
+                         cudaStream_t stream, const CUtensorMap& m0,
+                         const CUtensorMap& m1, const CUtensorMap& m2,
+                         const CUtensorMap& m3, const Args& a) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, wg::kThreads, smem, stream>>>(m0, m1, m2, m3, a);
+  return cudaGetLastError();
+}
+
+// The bf16 backward for D <= 128: the stats pre-pass, then the dK/dV and
+// the dQ kernels, with a tensor map per operand and box height.
+template <int DP>
+cudaError_t run_bwd_wgmma(const Args& a, cudaStream_t stream) {
+  constexpr int kOwn = wg::kBwdRows, kTile = wg::kBwdTile;
+  CUtensorMap q_own, do_own, k_tile, v_tile, k_own, v_own, q_tile, do_tile;
+  const struct {
+    CUtensorMap* map;
+    const View& t;
+    int S, rows;
+  } maps[] = {{&q_own, a.q, a.Sq, kOwn},    {&do_own, a.dout, a.Sq, kOwn},
+              {&k_tile, a.k, a.Sk, kTile},  {&v_tile, a.v, a.Sk, kTile},
+              {&k_own, a.k, a.Sk, kOwn},    {&v_own, a.v, a.Sk, kOwn},
+              {&q_tile, a.q, a.Sq, kTile},  {&do_tile, a.dout, a.Sq, kTile}};
+  for (const auto& m : maps) {
+    const cudaError_t err = tile_map(m.map, m.t, a.B, a.H, m.S, a.D, m.rows);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = delta_pass<wg::bf16, true>(a, stream);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = wg::bwd_smem_bytes<DP>();
+  const unsigned n_bh = a.B * a.H;
+  err = launch_wgmma(wg::flash_bwd_dkdv_wgmma_kernel<DP>, smem,
+                     (a.Sk + kOwn - 1) / kOwn * n_bh, stream, k_own, v_own,
+                     q_tile, do_tile, a);
+  if (err != cudaSuccess) return err;
+  return launch_wgmma(wg::flash_bwd_dq_wgmma_kernel<DP>, smem,
+                      (a.Sq + kOwn - 1) / kOwn * n_bh, stream, q_own, do_own,
+                      k_tile, v_tile, a);
+}
+
 // Tensor-core kernels, for bf16 with D <= 128 (padded to DP).
 template <int DP>
 cudaError_t run_tc(const Args& a, bool bwd, cudaStream_t stream) {
-  const size_t ldt = DP + 8, e = sizeof(tc::bf16), f = sizeof(float);
-  if (!bwd) return run_fwd_wgmma<DP>(a, stream);
-  cudaError_t err = delta_pass<tc::bf16>(a, stream);
-  if (err != cudaSuccess) return err;
-  {
-    constexpr int BQ = tc::kKvBQ, BK = tc::kKvBK;
-    err = launch(tc::flash_bwd_dkdv_tc_kernel<DP>,
-                 dim3((a.Sk + BK - 1) / BK, a.H, a.B), tc::kThreads,
-                 f * 2 * BQ + e * 2 * (BQ + BK) * ldt, stream, a);
-    if (err != cudaSuccess) return err;
-  }
-  constexpr int BQ = tc::kDqBQ, BK = tc::kDqBK;
-  return launch(tc::flash_bwd_dq_tc_kernel<DP>,
-                dim3((a.Sq + BQ - 1) / BQ, a.H, a.B), tc::kThreads,
-                f * 2 * BQ + e * 2 * (BQ + BK) * ldt, stream, a);
+  return bwd ? run_bwd_wgmma<DP>(a, stream) : run_fwd_wgmma<DP>(a, stream);
 }
 
 // Head dims are bucketed so each thread's accumulators are sized at
@@ -1448,8 +1627,9 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
 
 // The backward of flash_fwd: q, k, v, out (the forward's) and dout, with
 // their (batch, head, seq) strides in that order in `strides`; lse from
-// the forward; delta (B, H, Sq) f32 scratch; dq, dk, dv contiguous in
-// the input dtype.
+// the forward; delta f32 scratch of flash_bwd_scratch_floats() floats;
+// dq, dk, dv contiguous in the input dtype. bf16 with D <= 128 loads q,
+// k, v and dout by TMA, as flash_fwd does.
 extern "C" int flash_bwd(int dtype, const void* q, const void* k,
                          const void* v, const void* o, const void* dout,
                          const long long* strides, const float* lse,
@@ -1468,6 +1648,14 @@ extern "C" int flash_bwd(int dtype, const void* q, const void* k,
   a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.D = D;
   a.kv_len = kv_len, a.causal = causal, a.scale = scale;
   return dispatch(dtype, a, true, stream);
+}
+
+// Floats of flash_bwd's scratch: delta for the FMA kernels, each 64-row
+// q tile's stats for the wgmma kernels.
+extern "C" long long flash_bwd_scratch_floats(int dtype, int B, int H, int Sq,
+                                              int D) {
+  if (dtype == 1 && D <= 128) return (long long)B * H * ((Sq + 63) / 64) * 128;
+  return (long long)B * H * Sq;
 }
 
 extern "C" const char* flash_error_string(int err) {

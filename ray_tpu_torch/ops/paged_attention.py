@@ -4,7 +4,9 @@ pool, and the host-side page allocator.
 Port of ray_tpu/ops/paged_attention.py. The KV cache is a shared pool of
 fixed-size pages, (P, Hkv, page_size, D), and each sequence owns a row of
 pool indices (its page table). The three TPU kernels become one CUDA
-source, `csrc/paged_decode.cu`, with two block mappings.
+source, `csrc/paged_decode.cu`: K2 and K3 with one block per (sequence,
+KV head), K4 (`fused_heads=True`) split over the page table as well,
+with a second kernel that merges the splits.
 
 Each public function has a plain PyTorch version (`*_reference`). A
 wrapper runs the plain version for tensors on the CPU and launches the
@@ -46,9 +48,13 @@ def _kernels():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.paged_decode.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
                                      i32, i32, i32, i32, i32, i32,
-                                     ctypes.c_float, i32, ptr]
+                                     ctypes.c_float, ptr]
         lib.paged_decode.restype = i32
-        lib.paged_decode_smem_bytes.argtypes = [i32, i32, i32]
+        lib.paged_decode_split.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
+                                           ptr, i32, i32, i32, i32, i32, i32,
+                                           ctypes.c_float, i32, i32, ptr]
+        lib.paged_decode_split.restype = i32
+        lib.paged_decode_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
         lib.paged_decode_smem_bytes.restype = ctypes.c_size_t
         lib.paged_decode_error_string.argtypes = [i32]
         lib.paged_decode_error_string.restype = ctypes.c_char_p
@@ -107,6 +113,21 @@ def paged_decode_attention_reference(q, k_pool, v_pool, page_table, length,
 # ---------------------------------------------------------------------------
 
 
+def split_pages(batch: int, kv_heads: int, table_pages: int,
+                sm_count: int) -> tuple[int, int]:
+    """(splits, pages per split) of the fused-heads kernel K4, whose grid
+    is (batch, kv_heads, splits): the fewest splits, of equal pages but
+    the last, that give the grid at least two blocks an SM, and no more
+    than one a page. Split s covers the table's pages [s * per,
+    min((s + 1) * per, table_pages)); every split covers at least one
+    page, and every page lies in exactly one split."""
+    want = max(1, min(table_pages, -(-2 * sm_count // (batch * kv_heads))))
+    per = -(-table_pages // want)
+    while per > 1 and -(-table_pages // per) < want:
+        per -= 1
+    return -(-table_pages // per), per
+
+
 def _launch(q, k_pool, v_pool, tables, lengths, *, sm_scale, fused_heads):
     """Checks the kernel's inputs, launches it on the current stream of
     q's device and returns the (B, H, D) output."""
@@ -145,20 +166,33 @@ def _launch(q, k_pool, v_pool, tables, lengths, *, sm_scale, fused_heads):
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("k_pool and v_pool must be 16-byte aligned")
     lib = _kernels()
-    smem = lib.paged_decode_smem_bytes(H // Hkv, D, page_size)
+    smem = lib.paged_decode_smem_bytes(H // Hkv, D, page_size,
+                                       q.element_size(), int(fused_heads))
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(f"G={H // Hkv}, D={D}, page={page_size} needs "
                          f"{smem} bytes of shared memory per block")
     if sm_scale is None:
         sm_scale = 1.0 / (D ** 0.5)
     out = torch.empty_like(q)
+    code = _DTYPE_CODES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.paged_decode(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, H, Hkv, D, page_size, NP, float(sm_scale),
-            int(fused_heads), stream)
+        if fused_heads:
+            sms = torch.cuda.get_device_properties(
+                q.device).multi_processor_count
+            splits, per = split_pages(B, Hkv, NP, sms)
+            part = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                               device=q.device)
+            err = lib.paged_decode_split(
+                code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                part.data_ptr(), B, H, Hkv, D, page_size, NP, float(sm_scale),
+                splits, per, stream)
+        else:
+            err = lib.paged_decode(
+                code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
+                Hkv, D, page_size, NP, float(sm_scale), stream)
     if err:
         raise RuntimeError("paged decode kernel launch failed: "
                            + lib.paged_decode_error_string(err).decode())
@@ -189,8 +223,10 @@ def paged_decode_attention_batch(q, k_pool, v_pool, page_tables, lengths,
 
     q: (B, H, D); k_pool/v_pool: (P, Hkv, page_size, D) shared by every
     sequence; page_tables: (B, NP) int32; lengths: (B,) int32 (current
-    tokens included). fused_heads: one block per sequence covering every
-    KV head, instead of one block per (sequence, KV head).
+    tokens included). fused_heads: K4, the TPU's fused-heads kernel, which
+    here splits each page table over several blocks per (sequence, KV
+    head) and merges the splits (`split_pages`), instead of K3's one
+    block per (sequence, KV head).
     Returns (B, H, D) in q's dtype."""
     if q.device.type == "cpu":
         return paged_decode_attention_batch_reference(

@@ -1,13 +1,15 @@
 """Quick check of the flash attention kernels on one NVIDIA GPU: the
 first call to make after editing ray_tpu_torch/ops/csrc/flash_attention.cu.
 
-Builds the kernels and shows what the forward compiled to: ptxas's
-registers and spills for each flash kernel (when this call built the
-source), and from `cuobjdump` of the built library each kernel's resource
-use and its counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions.
-Then it runs chip_smoke.py's flash phase: the kernels against their plain
+Builds the kernels and shows what they compiled to: ptxas's registers
+and spills for each flash kernel (when this call built the source), from
+`cuobjdump` of the built libraries each kernel's resource use (the paged
+decode kernels' too), and each flash kernel's counts of HGMMA (wgmma),
+UTMALDG (TMA tile load) and UBLKCP (bulk copy) instructions. Then it
+runs chip_smoke.py's flash phase: the kernels against their plain
 versions over its cases, and their times at the training shape (B 2,
-H 16, S 2048, D 128, causal, bf16), printed as one JSON line per kernel.
+H 16, S 2048, D 128, causal, bf16) under both of chip_smoke.Timer's
+readings (ms, busy_ms), printed as one JSON line per kernel.
 
     python3 scripts/torch_flash_check.py
 """
@@ -28,7 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from ray_tpu_torch import _build  # noqa: E402
 
-SASS_OPS = ("HGMMA", "UTMALDG")
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
 
 
 def _cuobjdump() -> str:
@@ -55,15 +57,18 @@ def main():
     card = chip_smoke.card_line()
     print(f"card: {card}")
     t0 = time.perf_counter()
-    lib = _build.build_all()["flash_attention"]
+    libs = _build.build_all()
+    lib = libs["flash_attention"]
     print(f"build: {time.perf_counter() - t0:.1f} s")
     log = _build.build_log  # empty when the libraries were built before
     if "== flash_attention.cu" in log:
         print(log[log.index("== flash_attention.cu"):].split("\n== ")[0])
-    usage = subprocess.run([_cuobjdump(), "-res-usage", str(lib)], check=True,
-                           capture_output=True, text=True, timeout=300).stdout
-    print("\n".join(line.strip() for line in usage.splitlines()
-                    if "REG:" in line or "flash" in line))
+    for path in libs.values():
+        usage = subprocess.run([_cuobjdump(), "-res-usage", str(path)],
+                               check=True, capture_output=True, text=True,
+                               timeout=300).stdout
+        print("\n".join(line.strip() for line in usage.splitlines()
+                        if "REG:" in line or "Function" in line))
     for name, counts in sass_counts(lib).items():
         print("sass " + json.dumps({"kernel": name, **counts}))
     for row in chip_smoke.flash_kernel_phase(card).values():

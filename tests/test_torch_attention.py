@@ -76,6 +76,23 @@ def test_flash_grads_match_jax():
                                    rtol=1e-4)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_grads_match_jax_at_ragged_card_shapes(causal):
+    """S 333 and D 72, shapes at which the card tests hold the kernels
+    against the plain version: the plain version holds to JAX there."""
+    q, k, v = _qkv((1, 2, 333, 72), seed=8)
+    g = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: ja.flash_attention(q, k, v, None,
+                                                        causal),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv = (_torch(a).requires_grad_() for a in (q, k, v))
+    ta.flash_attention(tq, tk, tv, None, causal).backward(_torch(g))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(_np(got), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+
+
 def test_flash_bf16_matches_jax():
     q, k, v = _qkv((1, 2, 128, 32), seed=3, dtype=ml_dtypes.bfloat16)
     want = ja.flash_attention(*map(jnp.asarray, (q, k, v)), None, True, 32, 32)
@@ -155,6 +172,44 @@ def test_tma_layout_rule(layout, problem):
         assert got is None
     else:
         assert problem in got
+
+
+@pytest.mark.parametrize("layout,copied,problem", [
+    pytest.param("contiguous", False, None, id="contiguous"),
+    pytest.param("model_view", False, None, id="model-view"),
+    pytest.param("expanded", True, "stride is 0", id="expanded"),
+    pytest.param("offset", True, "16-byte boundary", id="offset-by-one"),
+    pytest.param("last_dim_strided", True, None, id="last-dim-strided"),
+])
+def test_backward_grad_layout_rule(layout, copied, problem):
+    """The output's gradient in the layouts autograd may hand over: those
+    the backward's TMA loads take pass as they are; the others are copied
+    by the autograd function (`grad_for_kernels`), and a direct call of
+    the backward refuses them (`tma_layout_problem` names why)."""
+    B, H, S, D = 2, 3, 5, 64
+    if layout == "model_view":
+        do = torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    elif layout == "expanded":
+        do = torch.ones(1, 1, 1, 1, dtype=torch.bfloat16).expand(B, H, S, D)
+    elif layout == "offset":
+        do = torch.zeros(B * H * S * D + 1, dtype=torch.bfloat16)[1:].view(
+            B, H, S, D)
+    elif layout == "last_dim_strided":
+        do = torch.zeros(B, H, S, 2 * D, dtype=torch.bfloat16)[..., ::2]
+    else:
+        do = torch.zeros(B, H, S, D, dtype=torch.bfloat16)
+    got = ta.grad_for_kernels(do)
+    if copied:
+        assert got is not do and got.is_contiguous()
+        assert ta.tma_layout_problem(got) is None
+        torch.testing.assert_close(got, do, rtol=0, atol=0)
+    else:
+        assert got is do
+    if problem is None:
+        assert layout == "last_dim_strided" or \
+            ta.tma_layout_problem(do) is None
+    else:
+        assert problem in ta.tma_layout_problem(do)
 
 
 def test_sequence_parallel_attention_raises():

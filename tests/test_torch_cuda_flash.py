@@ -1,5 +1,6 @@
 """The flash attention CUDA kernels (forward, and the backward's dK/dV and
-dQ kernels) against their plain PyTorch versions, on the card. Every test
+dQ kernels; bf16 with D <= 128 on wgmma and TMA) against their plain
+PyTorch versions, on the card. Every test
 here needs a CUDA device and skips without one. The file imports neither
 jax nor ray_tpu, so it runs where only the port is installed:
 
@@ -93,8 +94,8 @@ def _check(dtype, Sq, Sk, D, causal, kv_valid_len=None, B=1, H=2,
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("S", [1, 129, 2048])
+@pytest.mark.parametrize("D", [64, 72, 128])
+@pytest.mark.parametrize("S", [1, 129, 333, 2048])
 def test_kernels_match_plain(cuda, dtype, causal, D, S):
     _check(dtype, S, S, D, causal, dev=cuda)
 
@@ -125,6 +126,50 @@ def test_qkv_views(cuda, shape):
     B, H, Sq, Sk, D = shape
     _check(torch.bfloat16, Sq, Sk, D, True, B=B, H=H, dev=cuda,
            qkv_views=True)
+
+
+def _offset_by_one(t):
+    """t's values in a view that starts one element into its storage."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out = out.view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("layout", ["expanded", "offset"])
+def test_backward_takes_autograd_gradient_layouts(cuda, layout):
+    """dO as autograd may hand it over, an expanded (zero-stride) gradient
+    or a view one element in: the autograd function copies what the
+    backward's TMA loads cannot take, and the grads hold to the plain
+    backward's with a contiguous dO. Called directly, the backward
+    refuses such a dO instead."""
+    q, k, v, do = _inputs(cuda, torch.bfloat16, 2, 4, 333, 333, 72)
+    if layout == "expanded":
+        do = do[:1, :1].expand(q.shape)
+    else:
+        do = _offset_by_one(do)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, None, True).backward(do)
+    scale = 1 / math.sqrt(72)
+    res = (q, k, v, *fa.flash_forward_reference(q, k, v, scale, True, 512,
+                                                 512))
+    want = fa.flash_backward_reference(scale, True, 512, 512, None, res,
+                                       do.contiguous())
+    for t, w in zip(leaves, want):
+        _assert_close(t.grad, w, GRAD_TOL)
+    with pytest.raises(ValueError, match="TMA"):
+        fa._flash_backward(scale, True, 512, 512, None, res, do)
+
+
+def test_backward_is_deterministic(cuda):
+    """No atomics: two backward calls give bitwise equal grads."""
+    q, k, v, do = _inputs(cuda, torch.bfloat16, 2, 16, 2048, 2048, 128)
+    scale = 1 / math.sqrt(128)
+    res = (q, k, v, *fa._flash_forward(q, k, v, scale, True, 512, 512))
+    first = fa._flash_backward(scale, True, 512, 512, None, res, do)
+    again = fa._flash_backward(scale, True, 512, 512, None, res, do)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_autograd_function_matches_plain_attention(cuda):

@@ -70,6 +70,48 @@ def test_batch_kernel_matches_plain(cuda, dtype, tol, H, Hkv, D, page,
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", TOLERANCES[:2])
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_split_kernel_at_engine_shapes(cuda, dtype, tol, B):
+    """K4 (split over the page table) at the LLAMA3_8B engine's shapes: a
+    9-page table of 64-token pages, B * Hkv = 8, 64 and 256 blocks' worth
+    of (sequence, KV head) against 132 SMs (split 9, 5 and 2 ways). Every
+    batch holds lengths 1, 63, 64, 65 and the whole table (B = 1 takes
+    them one by one). A length-1 sequence lies in one split, so K4 gives
+    K3's answer to the bit there."""
+    H, Hkv, D, page, n_pages = 32, 8, 128, 64, 9
+    g = torch.Generator(device=cuda).manual_seed(B)
+    edge = [1, 63, 64, 65, n_pages * page]
+    batches = [[x] for x in edge] if B == 1 else \
+        [edge + torch.randint(1, n_pages * page + 1, (B - len(edge),),
+                              generator=g, device=cuda).tolist()]
+    for lengths in batches:
+        P = B * n_pages + 1
+        k_pool, v_pool = (torch.randn(P, Hkv, page, D, generator=g,
+                                      device=cuda).to(dtype)
+                          for _ in range(2))
+        q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
+        perm = torch.randperm(P, generator=g, device=cuda).tolist()
+        rows = []
+        for length in lengths:
+            own = [perm.pop() for _ in range(-(-length // page))]
+            rows.append((own + [own[-1]] * n_pages)[:n_pages])
+        args = (q, k_pool, v_pool,
+                torch.tensor(rows, dtype=torch.int32, device=cuda),
+                torch.tensor(lengths, dtype=torch.int32, device=cuda))
+        before = pa.launch_counts["paged_decode_attention_batch_fused"]
+        out = pa.paged_decode_attention_batch(*args, fused_heads=True)
+        want = pa.paged_decode_attention_batch_reference(*args)
+        k3 = pa.paged_decode_attention_batch(*args)
+        torch.cuda.synchronize()
+        assert pa.launch_counts["paged_decode_attention_batch_fused"] == \
+            before + 1
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        ones = [i for i, x in enumerate(lengths) if x == 1]
+        assert torch.equal(out[ones], k3[ones])
+
+
 def test_single_sequence_kernel_matches_plain(cuda):
     q, k_pool, v_pool, tables, lengths = _inputs(cuda, torch.float32,
                                                  32, 8, 128, 64)

@@ -54,6 +54,26 @@ def test_batch_matches_jax(H, Hkv, fused_heads):
                                rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("sm_count", [1, 78, 114, 132])
+def test_split_chooser_partitions_every_table(sm_count):
+    """K4's splits: for every batch, KV-head count and table width tried,
+    each page of the table lies in exactly one split, no split is empty,
+    and the grid reaches two blocks an SM where the table has pages
+    enough."""
+    for B in (1, 2, 3, 8, 32, 64, 257):
+        for Hkv in (1, 2, 8):
+            for NP in (1, 2, 5, 9, 17, 64):
+                splits, per = tpa.split_pages(B, Hkv, NP, sm_count)
+                covered = [p for s in range(splits)
+                           for p in range(s * per, min((s + 1) * per, NP))]
+                assert covered == list(range(NP)), (B, Hkv, NP, splits, per)
+                assert 1 <= splits <= NP and (splits - 1) * per < NP
+                enough = [-(-NP // p) for p in range(1, NP + 1)
+                          if B * Hkv * -(-NP // p) >= min(2 * sm_count,
+                                                          B * Hkv * NP)]
+                assert splits == min(enough), (B, Hkv, NP, splits, per)
+
+
 @pytest.mark.parametrize("H,Hkv", HEADS)
 def test_single_sequence_matches_jax(H, Hkv):
     """K2, vmapped over the sequences on the JAX side as its tests do."""
