@@ -18,7 +18,9 @@ Phases, in order; a failure in any of them ends the run with an error:
              host's launch latency kept out); the bound is the bytes the
              call must move over the card's memory rate; the library
              yardstick is a page gather plus
-             F.scaled_dot_product_attention (not used by the port).
+             F.scaled_dot_product_attention (not used by the port). Then,
+             outside the timed inputs, each kernel at length 0 (the
+             mean of V over the whole table, as the reference gives it).
 3. parity  - LLAMA3_8B widths at 2 layers in f32: the dense-cache
              Generator (no kernel) and the paged LLMEngine (kernel)
              decode 16 greedy tokens for 4 prompts and must agree; a
@@ -33,16 +35,16 @@ Phases, in order; a failure in any of them ends the run with an error:
 5. flash   - the flash attention kernels (forward; backward = delta
              pre-pass, dK/dV and dQ kernels) against their plain
              versions: f32 and bf16, causal or not, D in {64, 128}, S in
-             {1, 129, 2048}, Sq != Sk cases (one at D 72) and one
-             kv_valid_len case, q, k and v as the model's (B, S, H, D)
-             views (tolerances 2e-5 forward / 1e-4 grads in f32; in bf16
-             each tensor is held to |err| <= 2^-6 |ref| + rms(ref) / 32,
-             see bf16_err), then the training shape (B 2, H 16, S 2048,
-             D 128, causal, bf16) with contiguous inputs and with the
-             views, two backward calls bitwise equal, the views timed as
-             in phase 2; the library yardstick is
-             F.scaled_dot_product_attention (forward, and forward plus
-             backward), not used by the port.
+             {1, 129, 2048}, Sq != Sk cases (one at D 72), one
+             kv_valid_len case and a bf16 case at a negative scale, q,
+             k and v as the model's (B, S, H, D) views (tolerances 2e-5
+             forward / 1e-4 grads in f32; in bf16 each tensor is held to
+             |err| <= 2^-6 |ref| + rms(ref) / 32, see bf16_err), then the
+             training shape (B 2, H 16, S 2048, D 128, causal, bf16) with
+             contiguous inputs and with the views, two backward calls
+             bitwise equal, the views timed as in phase 2; the library
+             yardstick is F.scaled_dot_product_attention (forward, and
+             forward plus backward), not used by the port.
 6. train parity - the training cell's widths at 2 layers, from
              init_params(seed=0), AdamW steps of make_train_step on one
              batch with attention="reference" (plain autograd) and with
@@ -253,6 +255,24 @@ def bf16_err(out, want):
     return err.max().item(), (err / (rtol * want.abs() + atol)).max().item()
 
 
+def length_zero_case(args, tol, what: str) -> None:
+    """K2, K3 and K4 with every other sequence at length 0, against the
+    plain version, which averages V over the table there."""
+    q, k_pool, v_pool, tables, lens = args
+    lens = lens.clone()
+    lens[::2] = 0
+    want = pa.paged_decode_attention_batch_reference(q, k_pool, v_pool,
+                                                     tables, lens)
+    errs = [max_err(pa.paged_decode_attention_batch(
+        q, k_pool, v_pool, tables, lens, fused_heads=fused), want, tol)
+        for fused in (False, True)]
+    errs.append(max(max_err(
+        pa.paged_decode_attention(q[b], k_pool, v_pool, tables[b], lens[b]),
+        want[b], tol) for b in range(0, q.shape[0], 2)))
+    log(f"length 0 {what}: K3, K4, K2 max abs err "
+        + ", ".join(f"{e:.3g}" for e in errs))
+
+
 def kernel_phase(card: str) -> dict:
     """Checks and times every kernel; returns the main-path (B=8, bf16)
     row of each for the kernels line."""
@@ -293,6 +313,7 @@ def kernel_phase(card: str) -> dict:
                 lambda: library_attention(*one_b),
                 bound_ms([NP * PAGE], 1, dtype, card))
             torch.cuda.synchronize()
+            length_zero_case(args, tol, f"B={B} {str(dtype)[6:]}")
             for name, (err, kernel, plain, library, (bound, by)) in \
                     cases.items():
                 row = {"name": name, "route": "cuda", "source": SOURCE,
@@ -472,11 +493,13 @@ def flash_inputs(dtype, B, H, Sq, Sk, D, seed=0, views=True):
 
 
 def flash_case(dtype, B, H, Sq, Sk, D, causal, kv_valid_len=None,
-               views=True):
-    """Forward and backward kernels against the plain versions; returns
-    (inputs, residuals, max abs errors of out and of dq, dk, dv)."""
+               views=True, scale=None):
+    """Forward and backward kernels against the plain versions (scale
+    1 / sqrt(D) unless given); returns (inputs, residuals, max abs errors
+    of out and of dq, dk, dv)."""
     q, k, v, do = flash_inputs(dtype, B, H, Sq, Sk, D, views=views)
-    scale = 1 / math.sqrt(D)
+    if scale is None:
+        scale = 1 / math.sqrt(D)
     out, lse = fa._flash_forward(q, k, v, scale, causal, 512, 512,
                                  kv_valid_len)
     want, want_lse = fa.flash_forward_reference(q, k, v, scale, causal, 512,
@@ -499,7 +522,8 @@ def flash_case(dtype, B, H, Sq, Sk, D, causal, kv_valid_len=None,
         margins = (f"; margins out {m_out:.3g}, dq/dk/dv "
                    + "/".join(f"{m:.3g}" for _, m in g))
     log(f"flash {str(dtype)[6:]} B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
-        f"causal={causal} kv_valid_len={kv_valid_len} views={views}: "
+        f"causal={causal} kv_valid_len={kv_valid_len} views={views} "
+        f"scale={scale:.4g}: "
         f"out err {err:.3g}, "
         f"grad err {grad_err:.3g}{margins}")
     return (q, k, v, do), res, err, grad_err
@@ -518,6 +542,7 @@ def flash_kernel_phase(card: str) -> dict:
         flash_case(dtype, 1, 2, 200, 333, 128, True)
         flash_case(dtype, 1, 2, 300, 333, 128, False, kv_valid_len=250)
         flash_case(dtype, 1, 2, 333, 200, 72, True)
+    flash_case(torch.bfloat16, 1, 2, 129, 129, 128, True, scale=-0.1)
 
     B, H, S, D = TRAIN_B, TRAIN_CFG.n_heads, TRAIN_S, TRAIN_CFG.head_dim
     dtype, scale = torch.bfloat16, 1 / math.sqrt(D)

@@ -292,16 +292,12 @@ def _flash_forward(q, k, v, sm_scale: float, causal: bool,
     Its tiles are its own: block_q and block_k set only the plain
     version's blocks, which change nothing but the order of f32 sums.
     bf16 with D <= 128 loads through TMA, which bounds the layout
-    (`tma_layout_problem`), and folds the scale into exp2 after the row
-    max, which needs sm_scale > 0; the other kernels take any scale."""
+    (`tma_layout_problem`). Every kernel takes any scale."""
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, sm_scale, causal, block_q,
                                        block_k, kv_valid_len)
     kv_len = _check(q, k, v, kv_valid_len)
     B, H, Sq, D = q.shape
-    if q.dtype == torch.bfloat16 and D <= 128 and not sm_scale > 0:
-        raise ValueError(f"sm_scale {sm_scale}: the bf16 forward for D <= 128 "
-                         "needs a positive scale")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _kernels()

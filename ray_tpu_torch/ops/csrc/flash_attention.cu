@@ -804,11 +804,11 @@ __device__ __forceinline__ float exp2_approx(float x) {
 }
 
 // The online softmax of one score tile, in place: scores in raw units
-// (the scale enters through sl2 = scale * log2(e), sm_scale > 0) become
-// p; m and l move on, and alpha is the factor for O. Masks are tested
-// only on a tile that crosses the diagonal or kv_len (`edge`). A masked
-// score is -1e30, so exp2 of its FFMA is exactly 0, JAX's p = 0, with no
-// test per element.
+// (the scale enters through sl2 = scale * log2(e), scale > 0: the kernel
+// folds a scale <= 0 into Q first) become p; m and l move on, and alpha
+// is the factor for O. Masks are tested only on a tile that crosses the
+// diagonal or kv_len (`edge`). A masked score is -1e30, so exp2 of its
+// FFMA is exactly 0, JAX's p = 0, with no test per element.
 template <int NJ>
 __device__ __forceinline__ void softmax(float (&s)[NJ][4], float (&m)[2],
                                         float (&l)[2], float (&alpha)[2],
@@ -933,8 +933,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_kv<DP>(&k_map, &v_map, k_s, v_s, bars, j, h, b);
   }
 
+  // The row max below must be the extreme that becomes the max once
+  // scaled, so a scale <= 0 is folded into Q once (below): Q negated for a
+  // negative scale (the max of -s is the min of s), zeroed for a zero
+  // scale (every score 0, every unmasked p 1). `scale` is then |scale|,
+  // or 1 for 0; a NaN scale stays NaN.
+  const float scale = a.scale < 0.f    ? -a.scale
+                      : a.scale == 0.f ? 1.f
+                                       : a.scale;
   // scale * log2(e): p = exp2(s * sl2 - m * sl2) = exp(s * scale - m * scale).
-  const float sl2 = a.scale * 1.4426950408889634f;
+  const float sl2 = scale * 1.4426950408889634f;
   float o[DP / 8][4], s[NJ][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float alpha[2];
   uint32_t pa[BK / 16][4];  // P of the tile in hand, bf16, as wgmma's A
@@ -949,6 +957,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // Tile 0's scores and P.
   mbar_wait(bars, 0);
+  if (a.scale <= 0.f) {  // block-uniform; a positive scale skips it
+    const uint32_t flip = a.scale < 0.f ? 0x80008000u : 0u;
+    uint32_t* qw = reinterpret_cast<uint32_t*>(smem_raw + (q_s - raw));
+    for (int i = tid; i < (int)(kQBytes / 4); i += kThreads)
+      qw[i] = flip ? qw[i] ^ flip : 0u;
+    // Generic-proxy writes, then wgmma's async-proxy reads of Q.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  }
   kv_full(0);
   wgmma_fence();
   issue_qk<DP>(s, q_wg, k_s);
@@ -1012,7 +1029,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // The one conversion back to natural log: m * scale is JAX's max.
     if ((lane & 3) == 0 && rows[r] < a.Sq)
       a.lse_out[bh * a.Sq + rows[r]] =
-          l[r] == 0.f ? kNegInf : m[r] * a.scale + logf(l_safe);
+          l[r] == 0.f ? kNegInf : m[r] * scale + logf(l_safe);
   }
   tc::store_rows<DP>(static_cast<bf16*>(a.out) + bh * a.Sq * a.D, r0, a.Sq,
                      a.D, o, lane);
@@ -1606,9 +1623,9 @@ View view(const void* ptr, const long long* strides) {
 // one dtype, each with a contiguous last dim; `strides` holds the
 // (batch, head, seq) strides of q, k and v in elements. out (B, H, Sq, D)
 // and lse (B, H, Sq) f32 are contiguous. 16 <= D <= 256, D % 8 == 0;
-// 1 <= kv_len <= Sk. bf16 with D <= 128 needs scale > 0 and is loaded by
-// TMA: q, k and v need 16-byte aligned bases and strides that are
-// multiples of 8 (else cudaErrorInvalidValue). Launches on `stream`;
+// 1 <= kv_len <= Sk; any scale. bf16 with D <= 128 is loaded by TMA: q,
+// k and v need 16-byte aligned bases and strides that are multiples of 8
+// (else cudaErrorInvalidValue). Launches on `stream`;
 // returns the cudaError_t.
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                          const void* v, const long long* strides, void* out,

@@ -4,9 +4,11 @@ pool, and the host-side page allocator.
 Port of ray_tpu/ops/paged_attention.py. The KV cache is a shared pool of
 fixed-size pages, (P, Hkv, page_size, D), and each sequence owns a row of
 pool indices (its page table). The three TPU kernels become one CUDA
-source, `csrc/paged_decode.cu`: K2 and K3 with one block per (sequence,
-KV head), K4 (`fused_heads=True`) split over the page table as well,
-with a second kernel that merges the splits.
+source, `csrc/paged_decode.cu`: K2 and K3 one launch of a kernel that
+splits each (sequence, KV head)'s table over a thread-block cluster and
+merges the splits inside it (`cluster_splits`), K4 (`fused_heads=True`)
+a split kernel and a second kernel that merges the splits
+(`split_pages`).
 
 Each public function has a plain PyTorch version (`*_reference`). A
 wrapper runs the plain version for tensors on the CPU and launches the
@@ -17,6 +19,7 @@ not take. `launch_counts` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,14 +50,20 @@ def _kernels():
         lib = _build.load("paged_decode")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.paged_decode.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
-                                     i32, i32, i32, i32, i32, i32,
-                                     ctypes.c_float, ptr]
+                                     i32, i32, i32, i32, i32, i32, i32,
+                                     ctypes.c_float, i32, ptr]
         lib.paged_decode.restype = i32
         lib.paged_decode_split.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
                                            ptr, i32, i32, i32, i32, i32, i32,
                                            ctypes.c_float, i32, i32, ptr]
         lib.paged_decode_split.restype = i32
-        lib.paged_decode_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
+        lib.paged_decode_tile.argtypes = [i32, i32, i32, i32, i32,
+                                          ctypes.POINTER(i32),
+                                          ctypes.POINTER(i32)]
+        lib.paged_decode_tile.restype = i32
+        lib.paged_decode_resident_clusters.argtypes = [i32] * 6
+        lib.paged_decode_resident_clusters.restype = i32
+        lib.paged_decode_smem_bytes.argtypes = [i32, i32, i32, i32, i32, i32]
         lib.paged_decode_smem_bytes.restype = ctypes.c_size_t
         lib.paged_decode_error_string.argtypes = [i32]
         lib.paged_decode_error_string.restype = ctypes.c_char_p
@@ -72,9 +81,9 @@ def paged_decode_attention_batch_reference(q, k_pool, v_pool, page_tables,
                                            sm_scale: float | None = None):
     """Gathers each sequence's NP pages and runs a masked f32 softmax.
 
-    Same result as the paged kernels for lengths >= 1 (they walk the
-    same pages with an online softmax). A length of 0 averages V over
-    the table's pages, as the TPU kernels do."""
+    Same result as the paged kernels (they walk the same pages with an
+    online softmax). A length of 0 averages V over the table's pages, as
+    the TPU kernels and the CUDA kernels do."""
     B, H, D = q.shape
     _, Hkv, page_size, _ = k_pool.shape
     G = H // Hkv
@@ -128,6 +137,39 @@ def split_pages(batch: int, kv_heads: int, table_pages: int,
     return -(-table_pages // per), per
 
 
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+
+
+def cluster_splits(clusters: int, units: int, resident) -> int:
+    """Splits of each page table for the K2/K3 kernel, whose grid is
+    `clusters` (sequence, KV head, query-row group) triples, each a
+    thread-block cluster of one block per split: the most, up to the
+    cluster's 8 and the table's `units` chunks, that keep the whole grid
+    resident at once (`resident[s - 1]`: how many clusters of s blocks
+    the card holds at once, as the CUDA runtime counts them), since a
+    block's fixed costs (its first cold reads, the merge) would be paid
+    again by a second wave; at least 1. Split s owns the chunks
+    [s * units // splits, (s + 1) * units // splits)."""
+    fit = [s for s in range(1, min(MAX_CLUSTER, units) + 1)
+           if clusters <= resident[s - 1]]
+    return max(fit, default=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_clusters(code: int, G: int, D: int, page: int, NP: int,
+                       device: int) -> tuple[int, ...]:
+    """How many clusters of 1-8 blocks of the K2/K3 kernel CUDA device
+    `device` (current when called) holds at once for these shapes."""
+    lib = _kernels()
+    counts = tuple(lib.paged_decode_resident_clusters(code, G, D, page, NP, s)
+                   for s in range(1, MAX_CLUSTER + 1))
+    if min(counts) < 0:
+        raise RuntimeError(
+            "paged decode occupancy query failed: "
+            + lib.paged_decode_error_string(-min(counts)).decode())
+    return counts
+
+
 def _launch(q, k_pool, v_pool, tables, lengths, *, sm_scale, fused_heads):
     """Checks the kernel's inputs, launches it on the current stream of
     q's device and returns the (B, H, D) output."""
@@ -167,19 +209,19 @@ def _launch(q, k_pool, v_pool, tables, lengths, *, sm_scale, fused_heads):
         raise ValueError("k_pool and v_pool must be 16-byte aligned")
     lib = _kernels()
     smem = lib.paged_decode_smem_bytes(H // Hkv, D, page_size,
-                                       q.element_size(), int(fused_heads))
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"G={H // Hkv}, D={D}, page={page_size} needs "
-                         f"{smem} bytes of shared memory per block")
+                                       q.element_size(), NP, int(fused_heads))
+    if not 0 < smem <= _MAX_SMEM_BYTES:
+        raise ValueError(f"G={H // Hkv}, D={D}, page={page_size}, {NP} "
+                         "pages a table: the block's shared memory does not "
+                         "fit")
     if sm_scale is None:
         sm_scale = 1.0 / (D ** 0.5)
     out = torch.empty_like(q)
     code = _DTYPE_CODES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         if fused_heads:
-            sms = torch.cuda.get_device_properties(
-                q.device).multi_processor_count
             splits, per = split_pages(B, Hkv, NP, sms)
             part = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
                                device=q.device)
@@ -189,10 +231,19 @@ def _launch(q, k_pool, v_pool, tables, lengths, *, sm_scale, fused_heads):
                 part.data_ptr(), B, H, Hkv, D, page_size, NP, float(sm_scale),
                 splits, per, stream)
         else:
+            units, row_blocks = ctypes.c_int(), ctypes.c_int()
+            lib.paged_decode_tile(H // Hkv, D, page_size, q.element_size(),
+                                  NP, ctypes.byref(units),
+                                  ctypes.byref(row_blocks))
+            splits = cluster_splits(
+                B * Hkv * row_blocks.value, units.value,
+                _resident_clusters(code, H // Hkv, D, page_size, NP,
+                                   q.device.index))
             err = lib.paged_decode(
                 code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
-                Hkv, D, page_size, NP, float(sm_scale), stream)
+                Hkv, D, page_size, NP, k_pool.shape[0], float(sm_scale),
+                splits, stream)
     if err:
         raise RuntimeError("paged decode kernel launch failed: "
                            + lib.paged_decode_error_string(err).decode())
@@ -224,9 +275,9 @@ def paged_decode_attention_batch(q, k_pool, v_pool, page_tables, lengths,
     q: (B, H, D); k_pool/v_pool: (P, Hkv, page_size, D) shared by every
     sequence; page_tables: (B, NP) int32; lengths: (B,) int32 (current
     tokens included). fused_heads: K4, the TPU's fused-heads kernel, which
-    here splits each page table over several blocks per (sequence, KV
-    head) and merges the splits (`split_pages`), instead of K3's one
-    block per (sequence, KV head).
+    here splits each page table over several blocks and merges the splits
+    in a second kernel through an f32 workspace (`split_pages`), where K3
+    merges them inside one launch (`cluster_splits`).
     Returns (B, H, D) in q's dtype."""
     if q.device.type == "cpu":
         return paged_decode_attention_batch_reference(

@@ -7,10 +7,12 @@ Each argument is the root of a checkout (a `git archive` of the parent
 commit, say); each is timed in a process of its own, in the order given,
 with that checkout's `ray_tpu_torch` (built there at first use) and this
 checkout's `chip_smoke` inputs and Timer. Kernels, at the shapes of
-chip_smoke.py's main rows: the flash backward K1-bwd (B 2, H 16, S 2048,
-D 128, causal, bf16, q, k and v as the model's views), the paged decode
-kernels K3 and K4 (LLAMA3_8B engine shapes, B 8, bf16). Prints one JSON
-line per (checkout, kernel) with both Timer readings, `ms` and `busy_ms`.
+chip_smoke.py's main rows: the flash forward K1 and backward K1-bwd (B 2,
+H 16, S 2048, D 128, causal, bf16, q, k and v as the model's views), the
+paged decode kernels K3 and K4 (LLAMA3_8B engine shapes, B 8, bf16) and
+K2 (the same pool, the sequence that fills its 9-page table). Prints one
+JSON line per (checkout, kernel) with both Timer readings, `ms` and
+`busy_ms`.
 """
 
 from __future__ import annotations
@@ -51,14 +53,20 @@ def time_tree(tree: str) -> None:
     q, k, v, do = cs.flash_inputs(torch.bfloat16, B, H, S, S, D)
     scale = 1 / math.sqrt(D)
     res = (q, k, v, *fa._flash_forward(q, k, v, scale, True, 512, 512))
-    args, _ = cs.kernel_inputs(cs.MAX_BATCH, torch.bfloat16, seed=cs.MAX_BATCH)
+    args, lengths = cs.kernel_inputs(cs.MAX_BATCH, torch.bfloat16,
+                                     seed=cs.MAX_BATCH)
+    full = lengths.index(cs.NP * cs.PAGE)
+    one = (args[0][full], args[1], args[2], args[3][full], args[4][full])
     kernels = {
+        "flash_attention_forward":
+            lambda: fa._flash_forward(q, k, v, scale, True, 512, 512),
         "flash_attention_backward":
             lambda: fa._flash_backward(scale, True, 512, 512, None, res, do),
         "paged_decode_attention_batch":
             lambda: pa.paged_decode_attention_batch(*args),
         "paged_decode_attention_batch_fused":
             lambda: pa.paged_decode_attention_batch(*args, fused_heads=True),
+        "paged_decode_attention": lambda: pa.paged_decode_attention(*one),
     }
     for name, fn in kernels.items():
         print(json.dumps({"tree": tree, "kernel": name, "ms": timer(fn),

@@ -12,7 +12,10 @@ one JSON line:
 - spans: host time and count of the engine's spans (llm.prefill_many,
   llm.prefill_one, llm.decode_chunk), each with the device's busy share
   inside it;
-- kernels: device time by kernel name, largest first.
+- kernels: device time by kernel name, largest first;
+- paged_decode: the K3 kernel's device time and launches, and per decode
+  step (K3 runs once per layer per step) its time and the device's busy
+  time.
 
 Run from the repository root on the card:
 
@@ -93,6 +96,9 @@ def main():
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    k3 = [e for e in kernels if "paged_decode_cluster" in e.name]
+    k3_ms = sum(e.time_range.elapsed_us() for e in k3) / 1e3
+    steps = len(k3) / chip_smoke.LLAMA3_8B.n_layers
     print(json.dumps({
         "card": card,
         "window_ms": (end - start) / 1e3,
@@ -100,6 +106,11 @@ def main():
         "idle_share": 1 - busy / (end - start),
         "kernel_launches": len(kernels),
         "spans": spans,
+        "paged_decode": {
+            "ms": k3_ms, "launches": len(k3), "decode_steps": steps,
+            "ms_per_decode_step": k3_ms / steps if steps else None,
+            "device_busy_ms_per_decode_step":
+                busy / 1e3 / steps if steps else None},
         "kernels": [{"name": n[:90], "ms": t / 1e3, "launches": c}
                     for n, (t, c) in top],
     }), flush=True)

@@ -186,7 +186,7 @@ def test_autograd_function_matches_plain_attention(cuda):
                                pytest.param(256, id="bf16-D256")])
 def test_fma_forward_takes_a_negative_scale(cuda, D):
     """The FMA kernels scale each score before the row max, so they take
-    any scale; only the wgmma forward (bf16, D <= 128) refuses one <= 0."""
+    any scale (the wgmma forward too: test_wgmma_forward_takes_any_scale)."""
     dtype = torch.float32 if D == 64 else torch.bfloat16
     q, k, v, _ = _inputs(cuda, dtype, 1, 2, 129, 129, D)
     out, lse = fa._flash_forward(q, k, v, -0.1, True, 64, 64)
@@ -218,5 +218,19 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     shifted.copy_(qb)
     with pytest.raises(ValueError, match="TMA"):
         fa._flash_forward(shifted, kb, vb, 0.1, True, 64, 64)
-    with pytest.raises(ValueError, match="positive"):
-        fa._flash_forward(qb, kb, vb, -0.1, True, 64, 64)
+
+
+@pytest.mark.parametrize("scale", [-0.1, 0.0])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_forward_takes_any_scale(cuda, scale, D, causal):
+    """The wgmma forward (bf16, D <= 128) folds a scale <= 0 into Q, so
+    its row max is still the extreme that becomes the max once scaled:
+    out and lse match the plain version at a negative and a zero scale,
+    with masked keys (the causal diagonal, a ragged last tile)."""
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, 1, 2, 129, 129, D)
+    out, lse = fa._flash_forward(q, k, v, scale, causal, 64, 64)
+    want, want_lse = fa.flash_forward_reference(q, k, v, scale, causal, 64,
+                                                64)
+    _assert_close(out, want, FWD_TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=FWD_TOL, atol=FWD_TOL)

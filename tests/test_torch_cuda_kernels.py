@@ -19,10 +19,11 @@ TOLERANCES = [pytest.param(torch.float32, 2e-4, id="f32"),
               pytest.param(torch.bfloat16, 2e-2, id="bf16"),
               pytest.param(torch.float16, 2e-3, id="f16")]
 # (H, Hkv, D, page): MHA, the LLAMA3_8B engine shape, MQA over two
-# chunks per page, a page that is not a power of two, and a group large
-# enough that the chunk shrinks to fit shared memory.
+# chunks per page, a page that is not a power of two, a group large
+# enough that the chunk shrinks to fit shared memory, and a page of 12
+# (TMA boxes of 4 rows, unswizzled) with D 72 (a column atom half used).
 SHAPES = [(8, 8, 32, 8), (32, 8, 128, 64), (8, 1, 256, 128), (12, 4, 16, 48),
-          (64, 1, 256, 128)]
+          (64, 1, 256, 128), (8, 2, 72, 12)]
 NP = 4
 
 
@@ -33,9 +34,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, dtype, H, Hkv, D, page):
-    g = torch.Generator(device=dev).manual_seed(0)
-    lengths = [1, page, page + 1, NP * page - 1, NP * page, NP * page + 5]
+def _inputs(dev, dtype, H, Hkv, D, page, lengths=None, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if lengths is None:
+        lengths = [1, page, page + 1, NP * page - 1, NP * page, NP * page + 5]
     B, P = len(lengths), len(lengths) * NP + 1
 
     def randn(*shape):
@@ -46,7 +48,7 @@ def _inputs(dev, dtype, H, Hkv, D, page):
     perm = torch.randperm(P, generator=g, device=dev).tolist()
     rows = []
     for length in lengths:
-        own = [perm.pop() for _ in range(min(-(-length // page), NP))]
+        own = [perm.pop() for _ in range(max(1, min(-(-length // page), NP)))]
         rows.append((own + [own[-1]] * NP)[:NP])
     tables = torch.tensor(rows, dtype=torch.int32, device=dev)
     return q, k_pool, v_pool, tables, torch.tensor(lengths, dtype=torch.int32,
@@ -77,8 +79,8 @@ def test_split_kernel_at_engine_shapes(cuda, dtype, tol, B):
     9-page table of 64-token pages, B * Hkv = 8, 64 and 256 blocks' worth
     of (sequence, KV head) against 132 SMs (split 9, 5 and 2 ways). Every
     batch holds lengths 1, 63, 64, 65 and the whole table (B = 1 takes
-    them one by one). A length-1 sequence lies in one split, so K4 gives
-    K3's answer to the bit there."""
+    them one by one). At length 1 the one token's p is exp(0) = 1, so K4
+    and K3 both give that token's V to the bit."""
     H, Hkv, D, page, n_pages = 32, 8, 128, 64, 9
     g = torch.Generator(device=cuda).manual_seed(B)
     edge = [1, 63, 64, 65, n_pages * page]
@@ -108,8 +110,69 @@ def test_split_kernel_at_engine_shapes(cuda, dtype, tol, B):
             before + 1
         torch.testing.assert_close(out.float(), want.float(), rtol=tol,
                                    atol=tol)
-        ones = [i for i, x in enumerate(lengths) if x == 1]
-        assert torch.equal(out[ones], k3[ones])
+        for i in (i for i, x in enumerate(lengths) if x == 1):
+            v0 = v_pool[rows[i][0], :, 0].repeat_interleave(H // Hkv, dim=0)
+            assert torch.equal(out[i], v0) and torch.equal(k3[i], v0)
+
+
+@pytest.mark.parametrize("dtype,tol", TOLERANCES)
+@pytest.mark.parametrize("H,Hkv,D,page", [(8, 8, 32, 8), (32, 8, 128, 64),
+                                          (8, 2, 72, 12)])
+def test_length_zero_averages_the_table(cuda, dtype, tol, H, Hkv, D, page):
+    """At length 0 every score is -1e30, so the reference's p is exp(0) = 1
+    on all NP * page tokens of the table, padding included: K2, K3 and K4
+    give the mean of V over the table, as the plain version does, beside
+    sequences of other lengths in the same batch."""
+    args = _inputs(cuda, dtype, H, Hkv, D, page,
+                   lengths=[0, 3, 0, NP * page, 0], seed=1)
+    want = pa.paged_decode_attention_batch_reference(*args)
+    q, k_pool, v_pool, tables, lengths = args
+    mean = v_pool[tables[0].long()].float().mean(dim=(0, 2))  # (Hkv, D)
+    torch.testing.assert_close(
+        want[0].float(), mean.repeat_interleave(H // Hkv, dim=0).to(dtype)
+        .float(), rtol=tol, atol=tol)
+    for fused in (False, True):
+        out = pa.paged_decode_attention_batch(*args, fused_heads=fused)
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    for b in (0, 2, 4):
+        one = (q[b], k_pool, v_pool, tables[b], lengths[b])
+        torch.testing.assert_close(
+            pa.paged_decode_attention(*one).float(),
+            pa.paged_decode_attention_reference(*one).float(), rtol=tol,
+            atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", TOLERANCES)
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_cluster_kernel_grid(cuda, dtype, tol, B, G, D, page):
+    """The K2/K3 kernel over its split choices: B 1, 8 and 32 sequences of
+    mixed lengths (a 9-page table), G query rows a KV head, and two calls
+    bitwise equal (the splits merge in a fixed order)."""
+    Hkv, n_pages = 4, 9
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + G)
+    lengths = torch.randint(0, n_pages * page + 1, (B,), generator=g,
+                            device=cuda).tolist()
+    lengths[0] = n_pages * page
+    P = B * n_pages + 1
+    k_pool, v_pool = (torch.randn(P, Hkv, page, D, generator=g,
+                                  device=cuda).to(dtype) for _ in range(2))
+    q = torch.randn(B, G * Hkv, D, generator=g, device=cuda).to(dtype)
+    tables = torch.randperm(P, generator=g, device=cuda)[:B * n_pages].to(
+        torch.int32).view(B, n_pages)
+    args = (q, k_pool, v_pool, tables,
+            torch.tensor(lengths, dtype=torch.int32, device=cuda))
+    before = pa.launch_counts["paged_decode_attention_batch"]
+    out = pa.paged_decode_attention_batch(*args)
+    again = pa.paged_decode_attention_batch(*args)
+    want = pa.paged_decode_attention_batch_reference(*args)
+    torch.cuda.synchronize()
+    assert pa.launch_counts["paged_decode_attention_batch"] == before + 2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, again)
 
 
 def test_single_sequence_kernel_matches_plain(cuda):

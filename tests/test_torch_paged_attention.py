@@ -24,20 +24,21 @@ LENGTHS = [1, 7, 16, 37, NP * PAGE]   # the last fills the whole table
 HEADS = [pytest.param(8, 8, id="mha"), pytest.param(8, 4, id="gqa")]
 
 
-def _inputs(H, Hkv, seed=0):
+def _inputs(H, Hkv, seed=0, lengths=LENGTHS):
     """A shuffled pool holding noise everywhere (so a page read past the
-    length would show), tables padded with each sequence's last page."""
+    length would show), tables padded with each sequence's last page (a
+    sequence of length 0 owns one page)."""
     rng = np.random.default_rng(seed)
-    B, pool_pages = len(LENGTHS), len(LENGTHS) * NP + 3
+    B, pool_pages = len(lengths), len(lengths) * NP + 3
     k_pool = rng.standard_normal((pool_pages, Hkv, PAGE, D)).astype(np.float32)
     v_pool = rng.standard_normal((pool_pages, Hkv, PAGE, D)).astype(np.float32)
     free = list(rng.permutation(pool_pages))
     tables = np.zeros((B, NP), np.int32)
-    for b, length in enumerate(LENGTHS):
-        own = [int(free.pop()) for _ in range(-(-length // PAGE))]
+    for b, length in enumerate(lengths):
+        own = [int(free.pop()) for _ in range(max(1, -(-length // PAGE)))]
         tables[b] = (own + [own[-1]] * NP)[:NP]
     q = rng.standard_normal((B, H, D)).astype(np.float32)
-    return q, k_pool, v_pool, tables, np.asarray(LENGTHS, np.int32)
+    return q, k_pool, v_pool, tables, np.asarray(lengths, np.int32)
 
 
 @pytest.mark.parametrize("H,Hkv", HEADS)
@@ -54,24 +55,84 @@ def test_batch_matches_jax(H, Hkv, fused_heads):
                                rtol=2e-4, atol=2e-4)
 
 
+def _split_pages_case(B, Hkv, NP, sm_count):
+    """K4: pages in runs of `per`."""
+    splits, per = tpa.split_pages(B, Hkv, NP, sm_count)
+    covered = [p for s in range(splits)
+               for p in range(s * per, min((s + 1) * per, NP))]
+    assert covered == list(range(NP)), (B, Hkv, NP, splits, per)
+    assert 1 <= splits <= NP and (splits - 1) * per < NP
+    enough = [-(-NP // p) for p in range(1, NP + 1)
+              if B * Hkv * -(-NP // p) >= min(2 * sm_count, B * Hkv * NP)]
+    assert splits == min(enough), (B, Hkv, NP, splits, per)
+
+
+def _cluster_splits_case(B, Hkv, NP, sm_count, per_sm=3):
+    """K2/K3: NP chunks in balanced runs, one cluster of at most 8, with
+    `per_sm` blocks an SM resident."""
+    resident = [sm_count * per_sm // s for s in range(1, 9)]
+    splits = tpa.cluster_splits(B * Hkv, NP, resident)
+    runs = [range(s * NP // splits, (s + 1) * NP // splits)  # the kernel's
+            for s in range(splits)]
+    assert [u for r in runs for u in r] == list(range(NP)), (B, Hkv, NP)
+    assert all(len(r) >= 1 for r in runs)
+    assert max(map(len, runs)) - min(map(len, runs)) <= 1
+    assert 1 <= splits <= min(tpa.MAX_CLUSTER, NP)
+    fit = [s for s in range(1, min(tpa.MAX_CLUSTER, NP) + 1)
+           if B * Hkv <= resident[s - 1]]
+    assert splits == max(fit, default=1), (B, Hkv, NP, splits)
+
+
+@pytest.mark.parametrize("chooser", [_split_pages_case, _cluster_splits_case],
+                         ids=["split_pages", "cluster_splits"])
 @pytest.mark.parametrize("sm_count", [1, 78, 114, 132])
-def test_split_chooser_partitions_every_table(sm_count):
-    """K4's splits: for every batch, KV-head count and table width tried,
-    each page of the table lies in exactly one split, no split is empty,
-    and the grid reaches two blocks an SM where the table has pages
-    enough."""
+def test_split_chooser_partitions_every_table(sm_count, chooser):
+    """The split choosers of K4 (`split_pages`) and of K2/K3
+    (`cluster_splits`, over a table's chunks): for every batch, KV-head
+    count and table width tried, each page or chunk lies in exactly one
+    split and no split is empty. K4 reaches two blocks an SM where the
+    table allows it; K2/K3 take the most splits (up to the cluster's 8)
+    that keep the grid resident at once. With the engine's shapes (Hkv 8,
+    a 9-chunk table) on 132 SMs holding 3 blocks each, K2/K3 split 8 ways
+    at B 1 (64 blocks), 6 at B 8 (384) and 1 at B 32 (256)."""
     for B in (1, 2, 3, 8, 32, 64, 257):
         for Hkv in (1, 2, 8):
             for NP in (1, 2, 5, 9, 17, 64):
-                splits, per = tpa.split_pages(B, Hkv, NP, sm_count)
-                covered = [p for s in range(splits)
-                           for p in range(s * per, min((s + 1) * per, NP))]
-                assert covered == list(range(NP)), (B, Hkv, NP, splits, per)
-                assert 1 <= splits <= NP and (splits - 1) * per < NP
-                enough = [-(-NP // p) for p in range(1, NP + 1)
-                          if B * Hkv * -(-NP // p) >= min(2 * sm_count,
-                                                          B * Hkv * NP)]
-                assert splits == min(enough), (B, Hkv, NP, splits, per)
+                chooser(B, Hkv, NP, sm_count)
+    if chooser is _cluster_splits_case and sm_count == 132:
+        resident = [132 * 3 // s for s in range(1, 9)]
+        assert [tpa.cluster_splits(B * 8, 9, resident)
+                for B in (1, 8, 32)] == [8, 6, 1]
+
+
+@pytest.mark.parametrize("H,Hkv", HEADS)
+@pytest.mark.parametrize("fused_heads", [False, True])
+def test_length_zero_matches_jax(H, Hkv, fused_heads):
+    """At length 0 the JAX kernels average V over the table's pages
+    (every score -1e30, p = exp(0)); the port's plain versions, which its
+    CUDA kernels are held to on the card, give the same, batched (K3, K4)
+    and single-sequence (K2)."""
+    lengths = [0, 7, 0, 37, 0]
+    arrays = _inputs(H, Hkv, seed=2, lengths=lengths)
+    want = jpa.paged_decode_attention_batch(
+        *map(jnp.asarray, arrays), fused_heads=fused_heads)
+    got = tpa.paged_decode_attention_batch(
+        *map(torch.from_numpy, arrays), fused_heads=fused_heads)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+    if fused_heads:
+        return
+    q, k_pool, v_pool, tables, lens = arrays
+    for b in (0, 2):
+        want_one = jpa.paged_decode_attention(
+            jnp.asarray(q[b]), jnp.asarray(k_pool), jnp.asarray(v_pool),
+            jnp.asarray(tables[b]), jnp.asarray(lens[b]))
+        got_one = tpa.paged_decode_attention(
+            torch.from_numpy(q[b]), torch.from_numpy(k_pool),
+            torch.from_numpy(v_pool), torch.from_numpy(tables[b]),
+            torch.tensor(lens[b]))
+        np.testing.assert_allclose(got_one.numpy(), np.asarray(want_one),
+                                   rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("H,Hkv", HEADS)
