@@ -61,9 +61,24 @@ Phases, in order; a failure in any of them ends the run with an error:
              back once at the end. The loss must fall, and each flash
              kernel run once per layer per step (counts set to 0 just
              before the timed steps).
+8. sharded training - an NCCL world of one and make_mesh(MeshConfig())
+             (every axis of size 1): the training phase's config, params
+             and batch, 3 steps of the single-device step, then 3 steps
+             of init_sharded_state + shard_train_step with
+             TRANSFORMER_RULES, in turn. Losses and every parameter must
+             be bitwise equal, and each flash kernel run n_layers x 3
+             times on the sharded path (counts set to 0 just before its
+             steps); ms per step of both (the first step untimed) and
+             peak memory are logged. Then, on the mesh's size-1 axes:
+             ulysses_attention at the flash phase's training shape, out
+             and grads bitwise equal to flash_attention with one launch of
+             each kernel; ring_attention in f32 against mha_reference
+             (2e-5 forward, 1e-4 grads); pipeline_apply against the
+             layers applied in sequence (1e-5).
 
-Prints the kernels as one JSON line, the card's name and power limit, and
-last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
+Prints the kernels as one JSON line (a flash kernel's `launches` from
+the training phase, `sharded_launches` from the sharded one), the card's
+name and power limit, and last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 """
 
@@ -74,6 +89,8 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -82,6 +99,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ray_tpu_torch import _build
@@ -91,8 +109,13 @@ from ray_tpu_torch.models import (LLAMA3_8B, Generator, LlamaConfig,
                                   init_params)
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
+from ray_tpu_torch.parallel import (TRANSFORMER_RULES, MeshConfig, P,
+                                    initialize_multihost, make_mesh,
+                                    pipeline_apply)
 from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
-from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+from ray_tpu_torch.train import (adamw, init_sharded_state, init_train_state,
+                                 make_train_step, shard_train_step)
+from ray_tpu_torch.util.collective import ops as col
 
 H, HKV, D, PAGE = 32, 8, 128, 64                 # LLAMA3_8B, engine page
 MAX_LEN, CHUNK, MAX_BATCH = 512, 8, 8
@@ -117,6 +140,7 @@ TRAIN_CFG = LlamaConfig(vocab_size=32000, d_model=2048, n_layers=16,
                         max_seq_len=2048, dtype=torch.bfloat16,
                         attention="flash", remat=False)
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 10
+SHARDED_STEPS = 3
 # NVIDIA data sheets, dense: (memory B/s, f32 FLOP/s, bf16 FLOP/s).
 PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
          "SXM": (3.35e12, 67e12, 989e12)}
@@ -719,6 +743,147 @@ def training_phase(card: str, window=None, steps: int = TRAIN_STEPS) -> dict:
     return counts
 
 
+def timed_steps(step, state, batch, n_steps: int):
+    """n_steps steps; returns (state, losses, ms per step of all but the
+    first, peak memory in GiB). The losses are read once, at the end."""
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    return (state, torch.stack(losses).tolist(),
+            statistics.mean(times[1:]) * 1e3,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def ulps(a, b) -> int:
+    """The largest distance between a and b (bf16 or f32) in steps of
+    their type (same-sign values: the difference of their bit patterns)."""
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    ia, ib = (t.view(bits).long() for t in (a, b))
+    return (ia - ib).abs().max().item()
+
+
+def sharded_train_check(card: str, mesh) -> dict:
+    """The single-device step and the sharded step on a world of one, in
+    turn, from the same params and batch; returns the sharded path's
+    launch counts."""
+    cfg = TRAIN_CFG
+    batch = train_batch(cfg)
+    step = make_train_step(llama_loss)
+    state = init_train_state(cfg, adamw(3e-4, weight_decay=0.01), seed=0)
+    state, want_losses, plain_ms, plain_gib = timed_steps(
+        step, state, batch, SHARDED_STEPS)
+    want = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state, specs = init_sharded_state(
+        mesh, cfg, init_params, TRANSFORMER_RULES,
+        adamw(3e-4, weight_decay=0.01), cfg, 0)
+    batch_axes = P(("dp", "fsdp"), None)
+    sharded = shard_train_step(step, mesh, specs, (batch_axes, batch_axes))
+    fa.reset_launch_counts()
+    state, losses, ms, gib = timed_steps(sharded, state, batch,
+                                         SHARDED_STEPS)
+    counts = dict(fa.launch_counts)
+    got = {n: p.detach().full_tensor().cpu()
+           for n, p in state.model.named_parameters()}
+    unequal = {n: ulps(got[n], t) for n, t in want.items()
+               if not torch.equal(got[n], t)}
+    log("sharded training: " + json.dumps({
+        "card": card, "batch": TRAIN_B, "seq": TRAIN_S,
+        "steps": SHARDED_STEPS, "mesh": str(state.model.embed.weight
+                                            .device_mesh),
+        "losses": losses, "single_device_losses": want_losses,
+        "ms_per_step": ms, "single_device_ms_per_step": plain_ms,
+        "peak_gib": gib, "single_device_peak_gib": plain_gib,
+        "unequal_params_ulps": unequal, "launches": counts}))
+    if losses != want_losses or unequal:
+        raise AssertionError("the sharded step is not bitwise the "
+                             "single-device step")
+    want_n = cfg.n_layers * SHARDED_STEPS
+    if any(counts[name] != want_n for name in FLASH_KERNELS):
+        raise AssertionError(f"sharded flash launches {counts}, expected "
+                             f"{want_n} each")
+    return counts
+
+
+def size_one_axes_check(mesh) -> None:
+    """Ulysses, ring and the pipeline over the mesh's axes of size 1."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, H, S, D = TRAIN_B, TRAIN_CFG.n_heads, TRAIN_S, TRAIN_CFG.head_dim
+    with col.mesh_context(mesh):
+        for dtype, fn, want_fn in (
+                (torch.bfloat16, "ulysses",
+                 lambda *t: fa.flash_attention(*t, causal=True)),
+                (torch.float32, "ring",
+                 lambda *t: fa.mha_reference(*t, causal=True))):
+            q, k, v, do = flash_inputs(dtype, B, H, S, S, D, views=False)
+            results = []
+            for f in (want_fn, lambda *t: getattr(fa, f"{fn}_attention")(
+                    *t, axis="sp", causal=True)):
+                qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                fa.reset_launch_counts()
+                out = f(*qkv)
+                out.backward(do)
+                torch.cuda.synchronize()
+                results.append(([out.detach()] + [t.grad for t in qkv],
+                                dict(fa.launch_counts)))
+            (want, _), (got, counts) = results
+            if fn == "ulysses":
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError("ulysses at sp=1 is not bitwise "
+                                         "flash_attention")
+                if set(counts.values()) != {1}:
+                    raise AssertionError(f"ulysses launched {counts}")
+                log(f"ulysses sp=1 bf16 B={B} H={H} S={S} D={D} causal: out "
+                    f"and grads bitwise flash_attention, launches {counts}")
+            else:
+                max_err(got[0], want[0], 2e-5)
+                grad_err = max(max_err(a, b, 1e-4)
+                               for a, b in zip(got[1:], want[1:]))
+                log(f"ring sp=1 f32 B={B} H={H} S={S} D={D} causal: out err "
+                    f"{(got[0] - want[0]).abs().max().item():.3g}, grad err "
+                    f"{grad_err:.3g}")
+        g = torch.Generator(device="cuda").manual_seed(1)
+        ws = torch.randn(8, 16, 16, generator=g, device="cuda") * 0.3
+        x = torch.randn(8, 4, 16, generator=g, device="cuda")
+
+        def stage_fn(stage_ws, h):
+            for w in stage_ws:
+                h = torch.tanh(h @ w)
+            return h
+
+        got, want = pipeline_apply(stage_fn, ws, x, axis="pp"), \
+            stage_fn(ws, x)
+        log(f"pipeline pp=1: max abs err {max_err(got, want, 1e-5):.3g}")
+
+
+def sharded_training_phase(card: str) -> dict:
+    """An NCCL world of one on this card; the sharded step and the size-1
+    axes checks on make_mesh(MeshConfig()). Returns the sharded path's
+    flash launch counts."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        os.environ["MASTER_PORT"] = str(s.getsockname()[1])
+    os.environ["MASTER_ADDR"] = "localhost"
+    initialize_multihost(num_processes=1, process_id=0)
+    try:
+        mesh = make_mesh(MeshConfig())
+        counts = sharded_train_check(card, mesh)
+        size_one_axes_check(mesh)
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
 def run_phase(name: str, fn, *args):
     """Runs one phase; logs its time and peak device memory, then frees
     what it left in the allocator's cache."""
@@ -749,11 +914,14 @@ def main():
     counts = run_phase("serving", serving_phase, card)
     run_phase("train parity", train_parity_phase)
     flash_counts = run_phase("training", training_phase, card)
+    sharded_counts = run_phase("sharded training", sharded_training_phase,
+                               card)
 
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, row in flash_rows.items():
         row["launches"] = flash_counts[name]
+        row["sharded_launches"] = sharded_counts[name]
     print(json.dumps({"kernels": [rows[n] for n in KERNELS]
                       + [flash_rows[n] for n in FLASH_KERNELS]}))
     print(card_line())

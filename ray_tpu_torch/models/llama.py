@@ -9,8 +9,13 @@ head_dim), RMSNorm in f32 with f32 scales (flax's default param dtype).
 paged pool (batched single-token decode through the paged decode kernel),
 a dense per-sequence cache (prefill and the Generator's decode), and no
 cache (training and full forwards: `attention="flash"` through the flash
-kernels, or `"reference"`; ring and ulysses attention come with the
-sequence-parallel slice of the port and raise).
+kernels, `"reference"`, or the sequence-parallel `"ring"` and `"ulysses"`
+over the mesh's sp axis).
+
+With DTensor parameters (train/spmd.py's sharded state) every tensor the
+forward makes is a DTensor too, in both passes: the RoPE tables are
+replicated DTensors, a full forward slices them where it would index them
+with an arange, and the causal mask is made from the scores.
 
 Training: `cfg.remat` recomputes each decoder layer in the backward
 (`torch.utils.checkpoint`), `cross_entropy_loss` is the logsumexp form,
@@ -27,6 +32,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -66,7 +72,7 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     # attention without a cache: "flash" (the CUDA kernels), "reference"
-    # (plain torch); "ring" and "ulysses" belong to a later slice and raise.
+    # (plain torch), "ring" or "ulysses" (sequence parallel over "sp").
     attention: str = "flash"
     remat: bool = True
     # "full": recompute everything in the backward (least memory);
@@ -100,8 +106,13 @@ def rope_frequencies(head_dim: int, max_len: int, theta: float, device=None):
 
 
 def apply_rope(x, cos, sin, positions):
-    """x: (B, H, S, D). positions: (B, S) or (S,). Half-split rotation."""
-    if positions.dim() == 1:
+    """x: (B, H, S, D). positions: (B, S), (S,), or None for 0..S-1 (a
+    slice of the tables, the same rows as an arange). Half-split
+    rotation."""
+    if positions is None:
+        cos_p = cos[:x.shape[2]][None, None]
+        sin_p = sin[:x.shape[2]][None, None]
+    elif positions.dim() == 1:
         cos_p = cos[positions][None, None]
         sin_p = sin[positions][None, None]
     else:
@@ -306,7 +317,7 @@ class LlamaModel(nn.Module):
 
     def forward(self, tokens, positions=None, kv_caches=None):
         cfg = self.cfg
-        if positions is None:
+        if positions is None and kv_caches is not None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         rope = (self.rope_cos, self.rope_sin)
         x = self.embed(tokens)
@@ -342,10 +353,22 @@ def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: int, device=None):
             for _ in range(cfg.n_layers)]
 
 
+def _whole_last_dim(t):
+    """t, or for a DTensor t with its last dim (the vocab) sharded, t
+    gathered along it: DTensor's gather over a sharded dim leaves a
+    masked partial result that its redistribution then misreads."""
+    if not isinstance(t, DTensor):
+        return t
+    last = t.dim() - 1
+    placements = [Replicate() if isinstance(p, Shard) and p.dim in (-1, last)
+                  else p for p in t.placements]
+    return t.redistribute(t.device_mesh, placements)
+
+
 def cross_entropy_loss(logits, targets, mask=None):
     """Mean next-token negative log-likelihood, in the logsumexp form: no
     normalized (B, S, V) array is kept beside the logits."""
-    l32 = logits.float()
+    l32 = _whole_last_dim(logits.float())
     lse = torch.logsumexp(l32, dim=-1)
     picked = l32.gather(-1, targets.long()[..., None])[..., 0]
     nll = lse - picked

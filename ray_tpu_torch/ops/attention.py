@@ -18,18 +18,31 @@ run the plain version for tensors on the CPU and launch the kernels for
 tensors on a CUDA device, raising on anything the kernels do not take.
 `launch_counts` counts kernel launches per wrapper.
 
-`ring_attention` and `ulysses_attention` (sequence parallelism) belong to
-the port's sequence-parallel slice and raise until then.
+`ring_attention` and `ulysses_attention` are sequence parallelism over a
+mesh axis: on each rank's shard of the sequence inside `mesh_context`, as
+the reference runs them inside shard_map. Ring attention runs plain f32
+products, as the reference's einsums do; Ulysses runs `flash_attention` on
+the card and `mha_reference` on the CPU, as the reference does off-TPU.
+
+On DTensors (a sharded training step) each of the three runs on the local
+shards through `local_map`: the batch sharded over dp and fsdp and the
+heads over tp, as TRANSFORMER_RULES and batch_spec lay them out; the
+sequence stays sharded over sp for ring and Ulysses and is gathered first
+for flash attention, as GSPMD would gather it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ray_tpu_torch import _build
+from ray_tpu_torch.util.collective import ops as col
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -84,8 +97,8 @@ def mha_reference(q, k, v, sm_scale: float | None = None,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
         * _scale(q, sm_scale)
     if causal:
-        mask = torch.ones(s.shape[-2:], dtype=torch.bool,
-                          device=s.device).tril()
+        # new_ones: a replicated DTensor mask where s is a DTensor
+        mask = s.new_ones(s.shape[-2:], dtype=torch.bool).tril()
         s = s.masked_fill(~mask, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
@@ -374,19 +387,109 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
                     block_k: int = 512):
     """Flash attention. q, k, v: (batch, heads, seq, head_dim); causal
     masking is aligned top-left. Differentiable in q, k and v; the
-    backward recomputes P from the saved logsumexp."""
+    backward recomputes P from the saved logsumexp. DTensors run on each
+    rank's heads and batch shard (see the module's docstring)."""
+    if isinstance(q, DTensor):
+        return _on_local_shards(functools.partial(
+            flash_attention, sm_scale=sm_scale, causal=causal,
+            block_q=block_q, block_k=block_k), q, k, v)
     return _FlashAttention.apply(q, k, v, sm_scale, causal, block_q, block_k)
+
+
+def _on_local_shards(fn, q, k, v, seq_axis: str | None = None):
+    """fn(q, k, v) -> out on the local shards of DTensors (B, H, S, D):
+    batch on dp and fsdp, heads on tp, the sequence on seq_axis or
+    gathered; out is laid out as its inputs."""
+    mesh = q.device_mesh
+    shard = {"dp": 0, "fsdp": 0, "tp": 1, seq_axis: 2}
+    # a list: local_map reads a tuple of placements as one per output
+    layout = [Shard(shard[a]) if a in shard else Replicate()
+              for a in mesh.mesh_dim_names]
+    return local_map(fn, out_placements=layout, in_placements=(layout,) * 3,
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _collective_mesh(q):
+    """The mesh whose axes a DTensor attention's collectives name: the
+    current one (a sharded step sets the full mesh), else q's."""
+    mesh = col.current_mesh()
+    return q.device_mesh if mesh is None else mesh
 
 
 def ring_attention(q, k, v, axis: str = "sp", *, causal: bool = False,
                    sm_scale: float | None = None):
-    raise NotImplementedError(
-        "ring_attention is not ported yet: it comes with the port's "
-        "sequence-parallel slice (ROADMAP queue A, item 11)")
+    """Exact attention over a sequence sharded on a mesh axis.
+
+    q, k, v: this rank's sequence chunk, (B, H, S/n, D), chunks in axis
+    order. K and V rotate n-1 times around the ring (`permute`); an online
+    softmax in f32 merges each chunk's scores, and the causal mask comes
+    from the chunks' global positions. Differentiable: the rotations'
+    gradients go back around the ring. Runs inside mesh_context, or on
+    DTensors (the collectives then use the current mesh, else theirs).
+    """
+    if isinstance(q, DTensor):
+        with col.mesh_context(_collective_mesh(q)):
+            return _on_local_shards(functools.partial(
+                ring_attention, axis=axis, causal=causal, sm_scale=sm_scale),
+                q, k, v, seq_axis=axis)
+    n = col.axis_size(axis)
+    me = col.axis_index(axis)
+    scale = _scale(q, sm_scale)
+    B, H, S, D = q.shape
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    masked = _NEG_INF / 2
+    q32 = q.float()
+    acc = torch.zeros((B, H, S, D), dtype=torch.float32, device=q.device)
+    m_run = torch.full((B, H, S, 1), _NEG_INF, device=q.device)
+    l_run = torch.zeros((B, H, S, 1), device=q.device)
+    pos = torch.arange(S, device=q.device)
+    k_cur, v_cur = k, v
+    for i in range(n):
+        k_idx = (me - i) % n       # the global chunk held on this step
+        s = torch.einsum("bhqd,bhkd->bhqk", q32, k_cur.float()) * scale
+        if causal:
+            visible = (me * S + pos)[:, None] >= (k_idx * S + pos)[None, :]
+            s = torch.where(visible, s, _NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(m_new <= masked, 0.0, m_new)
+        p = torch.exp(torch.where(s <= masked, -math.inf, s - m_safe))
+        alpha = torch.exp(torch.where(m_run <= masked, -math.inf,
+                                      m_run - m_safe))
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p,
+                                         v_cur.float())
+        l_run = l_run * alpha + p.sum(dim=-1, keepdim=True)
+        m_run = m_new
+        if i < n - 1:
+            k_cur = col.permute(k_cur, axis, perm)
+            v_cur = col.permute(v_cur, axis, perm)
+    out = acc / torch.where(l_run == 0.0, 1.0, l_run)
+    return out.to(q.dtype)
 
 
 def ulysses_attention(q, k, v, axis: str = "sp", *, causal: bool = False,
                       sm_scale: float | None = None):
-    raise NotImplementedError(
-        "ulysses_attention is not ported yet: it comes with the port's "
-        "sequence-parallel slice (ROADMAP queue A, item 11)")
+    """DeepSpeed-Ulysses sequence parallelism.
+
+    q, k, v: this rank's sequence chunk, (B, H, S/n, D). An all-to-all
+    trades the sequence for the heads, (B, H/n, S, D), attention runs on
+    the whole sequence of H/n heads (`flash_attention` on the card,
+    `mha_reference` on the CPU), and a second all-to-all trades back.
+    Runs inside mesh_context, or on DTensors (the collectives then use
+    the current mesh, else theirs).
+    """
+    if isinstance(q, DTensor):
+        with col.mesh_context(_collective_mesh(q)):
+            return _on_local_shards(functools.partial(
+                ulysses_attention, axis=axis, causal=causal,
+                sm_scale=sm_scale), q, k, v, seq_axis=axis)
+    n = col.axis_size(axis)
+    if q.shape[1] % n:
+        raise ValueError(f"ulysses needs heads ({q.shape[1]}) divisible by "
+                         f"the axis ({n})")
+    qh, kh, vh = (col.alltoall(t, axis, split_axis=1, concat_axis=2)
+                  for t in (q, k, v))
+    if q.device.type == "cpu":
+        out = mha_reference(qh, kh, vh, sm_scale, causal)
+    else:
+        out = flash_attention(qh, kh, vh, sm_scale, causal)
+    return col.alltoall(out.to(q.dtype), axis, split_axis=2, concat_axis=1)

@@ -213,7 +213,9 @@ def test_backward_grad_layout_rule(layout, copied, problem):
 
 
 def test_sequence_parallel_attention_raises():
+    """Ring and Ulysses attention run over a mesh axis: outside
+    mesh_context (on plain tensors) they raise."""
     q = torch.zeros(1, 1, 4, 16)
     for fn in (ta.ring_attention, ta.ulysses_attention):
-        with pytest.raises(NotImplementedError, match="sequence-parallel"):
+        with pytest.raises(RuntimeError, match="mesh_context"):
             fn(q, q, q, causal=True)

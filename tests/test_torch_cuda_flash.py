@@ -234,3 +234,40 @@ def test_wgmma_forward_takes_any_scale(cuda, scale, D, causal):
                                                 64)
     _assert_close(out, want, FWD_TOL)
     torch.testing.assert_close(lse, want_lse, rtol=FWD_TOL, atol=FWD_TOL)
+
+
+def test_ulysses_world_of_one_is_flash_attention(cuda):
+    """Ulysses over an sp axis of one rank (an NCCL world of one) gives
+    flash_attention's out and q, k, v grads bit for bit, through one
+    launch of each kernel."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.util.collective import ops as col
+
+    q, k, v, do = _inputs(cuda, torch.bfloat16, 2, 16, 2048, 2048, 128)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        with col.mesh_context(make_mesh(MeshConfig())):
+            grads = []
+            for fn in (lambda *t: fa.flash_attention(*t, causal=True),
+                       lambda *t: fa.ulysses_attention(*t, axis="sp",
+                                                       causal=True)):
+                qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                fa.reset_launch_counts()
+                out = fn(*qkv)
+                out.backward(do)
+                torch.cuda.synchronize()
+                assert fa.launch_counts == {"flash_attention_forward": 1,
+                                            "flash_attention_backward": 1}
+                grads.append([out] + [t.grad for t in qkv])
+    finally:
+        dist.destroy_process_group()
+    for want, got in zip(*grads):
+        assert torch.equal(want, got)

@@ -178,7 +178,8 @@ def test_import_loads_no_jax_and_no_cuda():
     code = (
         "import sys, torch\n"
         "import ray_tpu_torch.serve.llm, ray_tpu_torch.models, "
-        "ray_tpu_torch.ops, ray_tpu_torch.train.spmd\n"
+        "ray_tpu_torch.ops, ray_tpu_torch.train.spmd, "
+        "ray_tpu_torch.parallel, ray_tpu_torch.util.collective.ops\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                  'ray_tpu'))\n"
@@ -204,6 +205,11 @@ def test_entry_points_raise_without_a_card():
         Generator(TINY, params, batch=1, max_len=64)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(TINY, seed=0)
+    from ray_tpu_torch.parallel import initialize_multihost, make_mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize_multihost("localhost:1", 1, 0)
 
 
 def test_cuda_wrappers_refuse_other_devices():
