@@ -42,7 +42,9 @@ Phases, in order; a failure in any of them ends the run with an error:
              |err| <= 2^-6 |ref| + rms(ref) / 32, see bf16_err), then the
              training shape (B 2, H 16, S 2048, D 128, causal, bf16) with
              contiguous inputs and with the views, two backward calls
-             bitwise equal, the views timed as in phase 2; the library
+             bitwise equal, the views timed as in phase 2, and the same
+             at the MoE's shape (H 32, contiguous, as its GQA repeat and
+             RoPE leave q, k and v); the library
              yardstick is F.scaled_dot_product_attention (forward, and
              forward plus backward), not used by the port.
 6. train parity - the training cell's widths at 2 layers, from
@@ -75,10 +77,31 @@ Phases, in order; a failure in any of them ends the run with an error:
              each kernel; ring_attention in f32 against mha_reference
              (2e-5 forward, 1e-4 grads); pipeline_apply against the
              layers applied in sequence (1e-5).
+9. moe parity - the MoE decoder (models/moe.py) at MIXTRAL_8X7B's widths
+             (d_model 4096, 32 heads over 8 KV heads, d_ff 14336, 8
+             experts, top-2, capacity 1.25) at 1 layer, from
+             init_params(seed=0), full remat as the config sets it, the
+             training batch: 3 AdamW steps in f32 with attention
+             "reference" and with "flash", every loss within 1e-4 and
+             step 1's routing (top_e, slot, keep) identical but at
+             near-ties (reported); 2 steps in bf16 held as phase 6 holds
+             the Llama, but where bf16 rounding re-routes near-tie tokens
+             the MoE blocks' gradients are reported, not held (see
+             bf16_parity); then on a new NCCL world of one, 3 bf16 steps of
+             shard_train_step by MOE_RULES against 3 single-device steps,
+             bitwise, as phase 8.
+10. moe training - MIXTRAL_8X7B's widths at 4 layers (6.07B
+             parameters), bf16, flash attention, full remat, B 2, S 2048,
+             the training phase's tokens and optimizer: one warm-up step,
+             then 5 timed steps; the loss must fall, K1 launch 2 x
+             n_layers and K1-bwd n_layers times a step; ms per step,
+             tokens/s, MFU (6N of the active parameters) and peak memory.
 
 Prints the kernels as one JSON line (a flash kernel's `launches` from
-the training phase, `sharded_launches` from the sharded one), the card's
-name and power limit, and last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
+the training phase, `sharded_launches` from the sharded one,
+`moe_launches` from the MoE training phase and `moe_sharded_launches`
+from phase 9's sharded steps), the card's name and power limit, and
+last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 """
 
@@ -103,10 +126,11 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ray_tpu_torch import _build
-from ray_tpu_torch.models import (LLAMA3_8B, Generator, LlamaConfig,
-                                  SamplingParams, count_flops_per_token,
-                                  cross_entropy_loss, init_kv_caches,
-                                  init_params)
+from ray_tpu_torch.models import (LLAMA3_8B, MIXTRAL_8X7B, MOE_RULES,
+                                  Generator, LlamaConfig, SamplingParams,
+                                  count_flops_per_token, cross_entropy_loss,
+                                  init_kv_caches, init_params, moe_aux_loss)
+from ray_tpu_torch.models import moe
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.parallel import (TRANSFORMER_RULES, MeshConfig, P,
@@ -141,6 +165,10 @@ TRAIN_CFG = LlamaConfig(vocab_size=32000, d_model=2048, n_layers=16,
                         attention="flash", remat=False)
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 10
 SHARDED_STEPS = 3
+# MIXTRAL_8X7B's widths cut to 4 layers: 6.07B parameters, whose bf16
+# weights, grads and two AdamW moments take about 45 GiB of the card.
+MOE_TRAIN_CFG = dataclasses.replace(MIXTRAL_8X7B, n_layers=4)
+MOE_TRAIN_STEPS = 5
 # NVIDIA data sheets, dense: (memory B/s, f32 FLOP/s, bf16 FLOP/s).
 PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
          "SXM": (3.35e12, 67e12, 989e12)}
@@ -555,7 +583,8 @@ def flash_case(dtype, B, H, Sq, Sk, D, causal, kv_valid_len=None,
 
 def flash_kernel_phase(card: str) -> dict:
     """Checks the flash kernels over the cases, then checks and times
-    them at the training shape; returns their rows for the kernels line."""
+    them at the training shape and at the MoE's; returns their rows for
+    the kernels line (the MoE shape's numbers under "moe_shape")."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for dtype in (torch.float32, torch.bfloat16):
@@ -568,22 +597,39 @@ def flash_kernel_phase(card: str) -> dict:
         flash_case(dtype, 1, 2, 333, 200, 72, True)
     flash_case(torch.bfloat16, 1, 2, 129, 129, 128, True, scale=-0.1)
 
-    B, H, S, D = TRAIN_B, TRAIN_CFG.n_heads, TRAIN_S, TRAIN_CFG.head_dim
+    B, S = TRAIN_B, TRAIN_S
+    flash_case(torch.bfloat16, B, TRAIN_CFG.n_heads, S, S,
+               TRAIN_CFG.head_dim, True, views=False)
+    timer = Timer()
+    rows = flash_shape_rows(card, timer, B, TRAIN_CFG.n_heads, S,
+                            TRAIN_CFG.head_dim, views=True)
+    # The MoE's shape: 32 query heads after the GQA repeat, whose copy
+    # (like RoPE's on q and k) leaves q, k and v contiguous.
+    moe_rows = flash_shape_rows(card, timer, B, MIXTRAL_8X7B.n_heads, S,
+                                MIXTRAL_8X7B.head_dim, views=False)
+    for name, row in rows.items():
+        row["moe_shape"] = {k: moe_rows[name][k] for k in TIMED}
+    return rows
+
+
+def flash_shape_rows(card: str, timer, B, H, S, D, views: bool) -> dict:
+    """The flash kernels at (B, H, S, D), causal, bf16: checked against
+    their plain versions, two backward calls bitwise equal, then timed
+    beside their plain versions and SDPA; their kernels-line rows."""
     dtype, scale = torch.bfloat16, 1 / math.sqrt(D)
-    flash_case(dtype, B, H, S, S, D, True, views=False)
-    (q, k, v, do), res, err, grad_err = flash_case(dtype, B, H, S, S, D, True)
+    (q, k, v, do), res, err, grad_err = flash_case(dtype, B, H, S, S, D, True,
+                                                   views=views)
     first, again = (fa._flash_backward(scale, True, 512, 512, None, res, do)
                     for _ in range(2))
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
         raise AssertionError("two backward calls gave different grads")
-    log("flash backward: two calls give bitwise equal dq, dk, dv")
+    log(f"flash backward H={H}: two calls give bitwise equal dq, dk, dv")
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
 
     def library_fwd_bwd():
         qg.grad = kg.grad = vg.grad = None
         F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(do)
 
-    timer = Timer()
     cases = {
         "flash_attention_forward": (
             err, lambda: fa._flash_forward(q, k, v, scale, True, 512, 512),
@@ -622,15 +668,22 @@ def train_batch(cfg, seed: int = 0):
     return data[:, :-1], data[:, 1:]
 
 
-def parity_trainer(cfg, params, batch, n_steps, attention, remat=False,
-                   policy="dots"):
-    """n_steps AdamW steps of one trainer from a clone of `params`; checks
-    its flash launch counts and returns (losses, first-step grads)."""
-    step = make_train_step(llama_loss)
-    vcfg = dataclasses.replace(cfg, attention=attention, remat=remat,
-                               remat_policy=policy)
+def flash_launches(cfg, n_steps: int) -> dict:
+    """The flash kernels' launches in n_steps training steps of cfg: each
+    once per layer and step, the forward twice under remat."""
+    flash = cfg.attention == "flash"
+    return {"flash_attention_forward":
+            flash * cfg.n_layers * n_steps * (2 if cfg.remat else 1),
+            "flash_attention_backward": flash * cfg.n_layers * n_steps}
+
+
+def parity_trainer(cfg, params, batch, n_steps, loss_fn=None):
+    """n_steps AdamW steps of one trainer of cfg (llama_loss unless
+    loss_fn is given) from a clone of `params`; checks its flash launch
+    counts and returns (losses, first-step grads)."""
+    step = make_train_step(loss_fn or llama_loss)
     # Each trainer owns its tensors: from_params takes them over.
-    state = init_train_state(vcfg, adamw(3e-4, weight_decay=0.01),
+    state = init_train_state(cfg, adamw(3e-4, weight_decay=0.01),
                              {n: t.clone() for n, t in params.items()})
     fa.reset_launch_counts()
     out = []
@@ -641,16 +694,13 @@ def parity_trainer(cfg, params, batch, n_steps, attention, remat=False,
             grads = {n: p.grad.float()
                      for n, p in state.model.named_parameters()}
     counts = dict(fa.launch_counts)
-    flash = attention == "flash"
-    want = {"flash_attention_forward":
-            flash * cfg.n_layers * n_steps * (2 if remat else 1),
-            "flash_attention_backward": flash * cfg.n_layers * n_steps}
+    want = flash_launches(cfg, n_steps)
     if counts != want:
-        raise AssertionError(f"{attention}, remat {remat} {policy}: "
+        raise AssertionError(f"{cfg.attention}, remat {cfg.remat}: "
                              f"launches {counts}, expected {want}")
     losses = torch.stack(out).tolist()
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{attention}: losses {losses}")
+        raise AssertionError(f"{cfg.attention}: losses {losses}")
     return losses, grads
 
 
@@ -668,8 +718,9 @@ def train_parity_phase():
                                      ("flash", True, "full"),
                                      ("flash", True, "dots")):
         name = f"{attention}, remat {policy if remat else 'off'}"
-        losses[name], _ = parity_trainer(cfg, params, batch, 3, attention,
-                                         remat, policy)
+        losses[name], _ = parity_trainer(
+            dataclasses.replace(cfg, attention=attention, remat=remat,
+                                remat_policy=policy), params, batch, 3)
     want = losses["reference, remat off"]
     for name, got in losses.items():
         if any(abs(a - b) > 1e-4 * abs(b) for a, b in zip(got, want)):
@@ -684,17 +735,46 @@ def train_parity_phase():
     # norm; the losses hold to 2^-8. A fault in one of the 32 q tiles of
     # every (batch, head) moves a grad by about sqrt(1/32), 0.18; the
     # flash phase holds each tile of each tensor.
-    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    bf16_parity("train parity bf16",
+                dataclasses.replace(cfg, dtype=torch.bfloat16), batch)
+
+
+def bf16_parity(what: str, cfg, batch, moe_model: bool = False) -> None:
+    """2 bf16 steps of cfg with flash attention against the reference
+    attention, from init_params(seed=0): losses within 2^-8, each
+    parameter's first-step gradient within 2^-5 of its norm.
+
+    For the MoE model (`moe_model`), bf16 rounding moves the router's
+    probabilities, so a token whose top k+1 probabilities are about as
+    close may route to another expert. Each token
+    routed otherwise at step 1 must be such a near-tie (`rerouted`); where
+    none is, the gradients are held as above; where some are, the
+    gradients of the MoE blocks (router, experts, the norm before them),
+    sums over the tokens each expert received, move with each re-routed
+    token and are reported, the others held as above."""
     params = init_params(cfg, seed=0)
-    want, want_grads = parity_trainer(cfg, params, batch, 2, "reference")
-    got, grads = parity_trainer(cfg, params, batch, 2, "flash")
-    rel = {n: ((grads[n] - g).norm() / g.norm()).item()
-           for n, g in want_grads.items()}
-    worst = max(rel, key=rel.get)
-    log("train parity bf16: " + json.dumps({
+    routings = {"reference": [], "flash": []}
+    losses, grads = {}, {}
+    for attention in routings:
+        losses[attention], grads[attention] = parity_trainer(
+            dataclasses.replace(cfg, attention=attention), params, batch, 2,
+            moe_loss_fn(routings[attention]) if moe_model else None)
+    del params
+    want, got = losses["reference"], losses["flash"]
+    rel = {n: ((grads["flash"][n] - g).norm() / g.norm()).item()
+           for n, g in grads["reference"].items()}
+    re_routed = rerouted(routings["reference"][0], routings["flash"][0],
+                         cfg.experts_per_token) if moe_model else 0
+    held = {n: r for n, r in rel.items() if not re_routed
+            or (".moe." not in n and "post_attn_norm" not in n)}
+    worst = max(held, key=held.get)
+    log(f"{what}: " + json.dumps({
         "reference": want, "flash": got,
         "max_loss_rel": max(abs(a - b) / abs(b) for a, b in zip(got, want)),
-        "max_grad_rel": rel[worst], "max_grad_rel_param": worst}))
+        "max_grad_rel": rel[worst], "max_grad_rel_param": worst,
+        **({"rerouted_tokens_step_1": re_routed,
+            "moe_block_grad_rel": {n: r for n, r in rel.items()
+                                   if n not in held}} if moe_model else {})}))
     if any(abs(a - b) > 2 ** -8 * abs(b) for a, b in zip(got, want)):
         raise AssertionError(f"bf16 flash losses {got} != reference {want}")
     if rel[worst] > 2 ** -5:
@@ -702,20 +782,50 @@ def train_parity_phase():
                              f"{rel[worst]:.3g} of its norm")
 
 
-def training_phase(card: str, window=None, steps: int = TRAIN_STEPS) -> dict:
-    """Trains the 1.2B config; `window` (a context manager, such as a
-    torch.profiler.profile) wraps just the timed steps."""
-    cfg = TRAIN_CFG
+def rerouted(want: dict, got: dict, k: int) -> int:
+    """The tokens whose top_e differs between two forwards' routings, each
+    checked to be a near-tie at the size of its probabilities' change: a
+    gap between two of its k+1 largest probabilities in `want` no larger
+    than twice the largest change of one of its probabilities (else the
+    two orders could not differ). slot and keep must be equal where no
+    token differs."""
+    count = 0
+    for layer, w in want.items():
+        g = got[layer]
+        differ = (w["top_e"] != g["top_e"]).any(-1)
+        if not bool(differ.any()):
+            if not (torch.equal(w["slot"], g["slot"])
+                    and torch.equal(w["keep"], g["keep"])):
+                raise AssertionError(f"{layer}: slot or keep differs")
+            continue
+        ranked = w["probs"][differ].topk(k + 1, dim=-1).values
+        gap = (ranked[:, :-1] - ranked[:, 1:]).min(-1).values
+        moved = (w["probs"][differ] - g["probs"][differ]).abs().amax(-1)
+        if not bool((gap <= 2 * moved).all()):
+            raise AssertionError(f"{layer}: a token re-routed without a "
+                                 "near-tie")
+        count += int(differ.sum())
+    return count
+
+
+def training_phase(card: str, window=None, steps: int = TRAIN_STEPS,
+                   cfg=TRAIN_CFG, loss_fn=None, what: str = "training",
+                   flops_per_token=count_flops_per_token) -> dict:
+    """Trains cfg (the 1.2B Llama config unless given, llama_loss unless
+    loss_fn is given); `window` (a context manager, such as a
+    torch.profiler.profile) wraps just the timed steps. Returns the flash
+    launch counts of the timed steps."""
     t0 = time.perf_counter()
     state = init_train_state(cfg, adamw(3e-4, weight_decay=0.01), seed=0)
     n_params = sum(p.numel() for p in state.model.parameters())
-    log(f"training: {n_params / 1e9:.3f}B params, bf16, ready in "
+    log(f"{what}: {n_params / 1e9:.3f}B params, bf16, ready in "
         f"{time.perf_counter() - t0:.1f} s")
     batch = train_batch(cfg)
-    step = make_train_step(llama_loss)
+    step = make_train_step(loss_fn or llama_loss)
     state, metrics = step(state, batch)     # warm-up
     first = metrics["loss"].item()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     with window or contextlib.nullcontext():
         t0 = time.perf_counter()
@@ -726,20 +836,24 @@ def training_phase(card: str, window=None, steps: int = TRAIN_STEPS) -> dict:
         losses = torch.stack(out).tolist()  # the one host read
         dt = time.perf_counter() - t0
     counts = dict(fa.launch_counts)
-    want = cfg.n_layers * steps
+    want = flash_launches(cfg, steps)
     if not all(math.isfinite(x) for x in [first] + losses) \
             or not losses[-1] < first:
         raise AssertionError(f"loss did not fall: {first} then {losses}")
-    if any(counts[name] != want for name in FLASH_KERNELS):
-        raise AssertionError(f"flash launches {counts}, expected {want} each "
-                             f"({cfg.n_layers} layers x {steps} steps)")
+    if counts != want:
+        raise AssertionError(f"flash launches {counts}, expected {want} "
+                             f"({cfg.n_layers} layers x {steps} steps, "
+                             f"remat {cfg.remat})")
     tokens_per_s = TRAIN_B * TRAIN_S * steps / dt
-    log("training: " + json.dumps({
-        "card": card, "batch": TRAIN_B, "seq": TRAIN_S, "steps": steps,
-        "first_loss": first, "losses": losses, "ms_per_step": dt / steps * 1e3,
+    log(f"{what}: " + json.dumps({
+        "card": card, "layers": cfg.n_layers, "batch": TRAIN_B,
+        "seq": TRAIN_S, "steps": steps, "first_loss": first,
+        "losses": losses, "ms_per_step": dt / steps * 1e3,
         "tokens_per_s": tokens_per_s,
-        "mfu_6n_no_attention_flops": tokens_per_s * count_flops_per_token(cfg)
-        / peaks(card)[2], "launches": counts}))
+        "mfu_6n_no_attention_flops": tokens_per_s * flops_per_token(cfg)
+        / peaks(card)[2],
+        "peak_gib_timed_steps": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": counts}))
     return counts
 
 
@@ -768,13 +882,14 @@ def ulps(a, b) -> int:
     return (ia - ib).abs().max().item()
 
 
-def sharded_train_check(card: str, mesh) -> dict:
+def sharded_train_check(card: str, mesh, cfg=TRAIN_CFG,
+                        rules=TRANSFORMER_RULES, loss_fn=None,
+                        what: str = "sharded training") -> dict:
     """The single-device step and the sharded step on a world of one, in
-    turn, from the same params and batch; returns the sharded path's
-    launch counts."""
-    cfg = TRAIN_CFG
+    turn, from the same params and batch (the training config, rules and
+    loss unless given); returns the sharded path's launch counts."""
     batch = train_batch(cfg)
-    step = make_train_step(llama_loss)
+    step = make_train_step(loss_fn or llama_loss)
     state = init_train_state(cfg, adamw(3e-4, weight_decay=0.01), seed=0)
     state, want_losses, plain_ms, plain_gib = timed_steps(
         step, state, batch, SHARDED_STEPS)
@@ -784,8 +899,8 @@ def sharded_train_check(card: str, mesh) -> dict:
     torch.cuda.empty_cache()
 
     state, specs = init_sharded_state(
-        mesh, cfg, init_params, TRANSFORMER_RULES,
-        adamw(3e-4, weight_decay=0.01), cfg, 0)
+        mesh, cfg, init_params, rules, adamw(3e-4, weight_decay=0.01), cfg,
+        0)
     batch_axes = P(("dp", "fsdp"), None)
     sharded = shard_train_step(step, mesh, specs, (batch_axes, batch_axes))
     fa.reset_launch_counts()
@@ -796,7 +911,7 @@ def sharded_train_check(card: str, mesh) -> dict:
            for n, p in state.model.named_parameters()}
     unequal = {n: ulps(got[n], t) for n, t in want.items()
                if not torch.equal(got[n], t)}
-    log("sharded training: " + json.dumps({
+    log(f"{what}: " + json.dumps({
         "card": card, "batch": TRAIN_B, "seq": TRAIN_S,
         "steps": SHARDED_STEPS, "mesh": str(state.model.embed.weight
                                             .device_mesh),
@@ -805,12 +920,11 @@ def sharded_train_check(card: str, mesh) -> dict:
         "peak_gib": gib, "single_device_peak_gib": plain_gib,
         "unequal_params_ulps": unequal, "launches": counts}))
     if losses != want_losses or unequal:
-        raise AssertionError("the sharded step is not bitwise the "
+        raise AssertionError(f"{what}: the sharded step is not bitwise the "
                              "single-device step")
-    want_n = cfg.n_layers * SHARDED_STEPS
-    if any(counts[name] != want_n for name in FLASH_KERNELS):
-        raise AssertionError(f"sharded flash launches {counts}, expected "
-                             f"{want_n} each")
+    if counts != flash_launches(cfg, SHARDED_STEPS):
+        raise AssertionError(f"{what}: sharded flash launches {counts}, "
+                             f"expected {flash_launches(cfg, SHARDED_STEPS)}")
     return counts
 
 
@@ -866,22 +980,79 @@ def size_one_axes_check(mesh) -> None:
         log(f"pipeline pp=1: max abs err {max_err(got, want, 1e-5):.3g}")
 
 
-def sharded_training_phase(card: str) -> dict:
-    """An NCCL world of one on this card; the sharded step and the size-1
-    axes checks on make_mesh(MeshConfig()). Returns the sharded path's
-    flash launch counts."""
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """An NCCL world of one on this card; yields make_mesh(MeshConfig())
+    (every axis of size 1)."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         os.environ["MASTER_PORT"] = str(s.getsockname()[1])
     os.environ["MASTER_ADDR"] = "localhost"
     initialize_multihost(num_processes=1, process_id=0)
     try:
-        mesh = make_mesh(MeshConfig())
-        counts = sharded_train_check(card, mesh)
-        size_one_axes_check(mesh)
+        yield make_mesh(MeshConfig())
     finally:
         dist.destroy_process_group()
+
+
+def sharded_training_phase(card: str) -> dict:
+    """The sharded step and the size-1 axes checks on a world of one.
+    Returns the sharded path's flash launch counts."""
+    with nccl_world_of_one() as mesh:
+        counts = sharded_train_check(card, mesh)
+        size_one_axes_check(mesh)
     return counts
+
+
+def moe_loss_fn(routings: list | None = None):
+    """The MoE model's loss (next-token loss plus the layers' aux losses);
+    each forward's routing, by layer, is appended to `routings` if given."""
+    def loss_fn(model, batch):
+        inp, tgt = batch
+        inter = {}
+        logits = model(inp, intermediates=inter)
+        if routings is not None:
+            routings.append({k: v for k, v in inter.items()
+                             if k.endswith("/routing")})
+        return cross_entropy_loss(logits, tgt) + moe_aux_loss(inter)
+    return loss_fn
+
+
+def moe_parity_phase(card: str) -> dict:
+    """MIXTRAL_8X7B's widths at 1 layer, from init_params(seed=0), remat as
+    the config sets it: 3 f32 steps with the reference attention and with
+    flash (losses within 1e-4, step 1's routing identical but at
+    near-ties, see `rerouted`), 2 bf16 steps as the Llama's train parity
+    (see bf16_parity), then the bf16 sharded step by MOE_RULES
+    on a world of one against the single-device step, bitwise. Returns the
+    sharded path's flash launch counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=1, dtype=torch.float32)
+    params = init_params(cfg, seed=0)
+    batch = train_batch(cfg)
+    losses, routings = {}, {}
+    for attention in ("reference", "flash"):
+        routings[attention] = []
+        losses[attention], _ = parity_trainer(
+            dataclasses.replace(cfg, attention=attention), params, batch, 3,
+            moe_loss_fn(routings[attention]))
+    del params
+    want, got = losses["reference"], losses["flash"]
+    if any(abs(a - b) > 1e-4 * abs(b) for a, b in zip(got, want)):
+        raise AssertionError(f"moe flash losses {got} != reference {want}")
+    re_routed = rerouted(routings["reference"][0], routings["flash"][0],
+                         cfg.experts_per_token)
+    kept = [float(r["keep"].mean()) for r in routings["flash"][0].values()]
+    log("moe parity f32: " + json.dumps({
+        "losses": losses, "rerouted_tokens_step_1": re_routed,
+        "kept_share_step_1": kept}))
+    del routings
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16, attention="flash")
+    bf16_parity("moe parity bf16", cfg, batch, moe_model=True)
+    with nccl_world_of_one() as mesh:
+        return sharded_train_check(card, mesh, cfg, MOE_RULES, moe_loss_fn(),
+                                   "moe sharded training")
 
 
 def run_phase(name: str, fn, *args):
@@ -916,12 +1087,18 @@ def main():
     flash_counts = run_phase("training", training_phase, card)
     sharded_counts = run_phase("sharded training", sharded_training_phase,
                                card)
+    moe_sharded_counts = run_phase("moe parity", moe_parity_phase, card)
+    moe_counts = run_phase("moe training", training_phase, card, None,
+                           MOE_TRAIN_STEPS, MOE_TRAIN_CFG, moe_loss_fn(),
+                           "moe training", moe.count_flops_per_token)
 
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, row in flash_rows.items():
         row["launches"] = flash_counts[name]
         row["sharded_launches"] = sharded_counts[name]
+        row["moe_launches"] = moe_counts[name]
+        row["moe_sharded_launches"] = moe_sharded_counts[name]
     print(json.dumps({"kernels": [rows[n] for n in KERNELS]
                       + [flash_rows[n] for n in FLASH_KERNELS]}))
     print(card_line())

@@ -277,18 +277,10 @@ _REMAT_CONTEXT = {
 }
 
 
-class LlamaModel(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
-        super().__init__()
-        self.cfg = cfg
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model,
-                                  dtype=cfg.dtype, device=device)
-        self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device) for _ in range(cfg.n_layers))
-        self.norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
-        self.lm_head = None if cfg.tie_embeddings else _linear(
-            cfg, device, cfg.d_model, cfg.vocab_size)
-        self._set_rope(device)
+class DecoderModel(nn.Module):
+    """What the port's decoders share: the RoPE tables as the buffers
+    `rope_cos`/`rope_sin` (train/spmd.py replicates them on a mesh) and
+    loading a state_dict without copying it."""
 
     def _set_rope(self, device):
         # RoPE tables computed once per model, f32, (max_seq_len, D/2).
@@ -298,9 +290,8 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_sin", sin, persistent=False)
 
     @classmethod
-    def from_params(cls, cfg: LlamaConfig, params: dict,
-                    device: torch.device,
-                    trainable: bool = False) -> "LlamaModel":
+    def from_params(cls, cfg, params: dict, device: torch.device,
+                    trainable: bool = False):
         """A model that holds `params` (a state_dict, as init_params or
         params_from_flax give it) on `device`, without a second copy of
         tensors already there: two models loaded from one dict share their
@@ -314,6 +305,20 @@ class LlamaModel(nn.Module):
             strict=True, assign=True)
         model._set_rope(device)
         return model.requires_grad_(trainable).train(trainable)
+
+
+class LlamaModel(DecoderModel):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model,
+                                  dtype=cfg.dtype, device=device)
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, device) for _ in range(cfg.n_layers))
+        self.norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
+        self.lm_head = None if cfg.tie_embeddings else _linear(
+            cfg, device, cfg.d_model, cfg.vocab_size)
+        self._set_rope(device)
 
     def forward(self, tokens, positions=None, kv_caches=None):
         cfg = self.cfg
@@ -354,14 +359,15 @@ def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: int, device=None):
 
 
 def _whole_last_dim(t):
-    """t, or for a DTensor t with its last dim (the vocab) sharded, t
-    gathered along it: DTensor's gather over a sharded dim leaves a
-    masked partial result that its redistribution then misreads."""
+    """t, or for a DTensor t, t gathered along its last dim (the vocab)
+    and with its partial sums reduced (the MoE's expert-parallel output
+    leaves them): DTensor's gather over a sharded or partial vocab leaves
+    a masked partial result that its redistribution then misreads."""
     if not isinstance(t, DTensor):
         return t
     last = t.dim() - 1
-    placements = [Replicate() if isinstance(p, Shard) and p.dim in (-1, last)
-                  else p for p in t.placements]
+    placements = [p if isinstance(p, Shard) and p.dim not in (-1, last)
+                  else Replicate() for p in t.placements]
     return t.redistribute(t.device_mesh, placements)
 
 

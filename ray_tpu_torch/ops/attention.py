@@ -24,7 +24,8 @@ the reference runs them inside shard_map. Ring attention runs plain f32
 products, as the reference's einsums do; Ulysses runs `flash_attention` on
 the card and `mha_reference` on the CPU, as the reference does off-TPU.
 
-On DTensors (a sharded training step) each of the three runs on the local
+On DTensors (a sharded training step) each of the three, and
+`mha_reference`, runs on the local
 shards through `local_map`: the batch sharded over dp and fsdp and the
 heads over tp, as TRANSFORMER_RULES and batch_spec lay them out; the
 sequence stays sharded over sp for ring and Ulysses and is gathered first
@@ -93,11 +94,14 @@ def _scale(q, sm_scale):
 def mha_reference(q, k, v, sm_scale: float | None = None,
                   causal: bool = False):
     """q, k, v: (B, H, S, D). f32 softmax attention; a causal mask is
-    aligned top-left. Returns q's dtype."""
+    aligned top-left. Returns q's dtype. DTensors run on each rank's heads
+    and batch shard, as flash_attention does."""
+    if isinstance(q, DTensor):
+        return _on_local_shards(functools.partial(
+            mha_reference, sm_scale=sm_scale, causal=causal), q, k, v)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
         * _scale(q, sm_scale)
     if causal:
-        # new_ones: a replicated DTensor mask where s is a DTensor
         mask = s.new_ones(s.shape[-2:], dtype=torch.bool).tril()
         s = s.masked_fill(~mask, _NEG_INF)
     p = torch.softmax(s, dim=-1)

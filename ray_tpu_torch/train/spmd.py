@@ -28,8 +28,9 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.convert import init_params
+from ray_tpu_torch.models.convert import init_params, model_class
 from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from ray_tpu_torch.models.moe import MoEConfig, MoEModel
 from ray_tpu_torch.parallel.mesh import axis_sizes
 from ray_tpu_torch.parallel.sharding import (P, ShardingRules, distribute,
                                              layout_mesh, spec_axes,
@@ -39,7 +40,7 @@ from ray_tpu_torch.util.collective.ops import mesh_context
 
 @dataclasses.dataclass
 class TrainState:
-    model: LlamaModel                   # the params
+    model: LlamaModel | MoEModel        # the params
     optimizer: torch.optim.Optimizer   # the opt state and the update
     step: int = 0
 
@@ -53,10 +54,11 @@ def adamw(learning_rate: float, weight_decay: float = 1e-4):
                              weight_decay=weight_decay)
 
 
-def init_train_state(cfg: LlamaConfig, optimizer: Callable,
+def init_train_state(cfg: LlamaConfig | MoEConfig, optimizer: Callable,
                      params: dict | None = None, *, seed: int = 0,
                      device=None) -> TrainState:
-    """A TrainState on `device` (None means CUDA): the model from `params`
+    """A TrainState on `device` (None means CUDA): the model of cfg's type
+    (`models.convert.model_class`) from `params`
     (a state_dict from init_params or params_from_flax; drawn with
     init_params(cfg, seed) when None) and optimizer(model.parameters()).
     The model takes over tensors already on `device`: give each state
@@ -64,7 +66,8 @@ def init_train_state(cfg: LlamaConfig, optimizer: Callable,
     device = resolve_device(device)
     if params is None:
         params = init_params(cfg, seed=seed, device=device)
-    model = LlamaModel.from_params(cfg, params, device, trainable=True)
+    model = model_class(cfg).from_params(cfg, params, device,
+                                         trainable=True)
     return TrainState(model, optimizer(model.parameters()))
 
 
@@ -93,7 +96,7 @@ def _mesh_device(mesh: DeviceMesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def _lay_out(model: LlamaModel, tensors: dict, lmesh: DeviceMesh,
+def _lay_out(model: LlamaModel | MoEModel, tensors: dict, lmesh: DeviceMesh,
              placements: dict) -> None:
     """Puts each full tensor (the same on every rank) into the model as a
     DTensor parameter with its placements on lmesh (each rank keeps its
@@ -120,7 +123,7 @@ def state_specs_from_rules(state: TrainState, rules: ShardingRules) -> dict:
     return {"params": specs, "opt_state": dict(specs), "step": P()}
 
 
-def init_sharded_state(mesh: DeviceMesh, cfg: LlamaConfig, init,
+def init_sharded_state(mesh: DeviceMesh, cfg: LlamaConfig | MoEConfig, init,
                        rules: ShardingRules, optimizer: Callable,
                        *init_args) -> tuple[TrainState, dict]:
     """A TrainState laid out on the mesh by the rules, and its specs.
@@ -133,7 +136,7 @@ def init_sharded_state(mesh: DeviceMesh, cfg: LlamaConfig, init,
     optimizer is optimizer(model.parameters()), so its moments are laid
     out as their parameters."""
     params = init(*init_args) if callable(init) else init
-    model = LlamaModel(cfg, device="meta")
+    model = model_class(cfg)(cfg, device="meta")
     meta = dict(model.named_parameters())
     if set(params) != set(meta):
         raise ValueError(f"params do not match the model: "

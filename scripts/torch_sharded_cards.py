@@ -22,6 +22,15 @@ Every rank runs, in order:
    of the sequence: out and q, k, v grads against mha_reference (ring,
    2e-5 and 1e-4) and flash_attention (Ulysses, chip_smoke.bf16_err) on
    the whole sequence.
+4. moe parity - the MoE decoder at MIXTRAL_8X7B's widths at 1 layer in
+   f32 (flash attention, full remat), laid out by MOE_RULES on each mesh
+   of MOE_MESHES (experts over ep, and heads, d_ff and the vocab over
+   tp): 3 sharded steps against 3 of the single-device step on the
+   rank's own card, losses within 2e-5 (relative).
+5. moe timing - the same widths at 2 layers in bf16 on (ep 4), each card
+   holding 2 of the 8 experts: as the timing part, ms per step, flash
+   launches per step, peak memory and the trace (of it, the NCCL share
+   of device time).
 
 Rank 0 prints one JSON line of the results with the card's name and power
 limit; any failure ends the run non-zero. Run from the repository root on
@@ -57,6 +66,7 @@ sys.path.insert(0, _HERE)
 import chip_smoke  # noqa: E402
 from torch_sharded_step import trace  # noqa: E402
 
+from ray_tpu_torch.models import MIXTRAL_8X7B, MOE_RULES  # noqa: E402
 from ray_tpu_torch.models import init_params  # noqa: E402
 from ray_tpu_torch.ops import attention as fa  # noqa: E402
 from ray_tpu_torch.parallel import (TRANSFORMER_RULES, MeshConfig, P,  # noqa: E402
@@ -68,6 +78,8 @@ from ray_tpu_torch.util.collective import ops as col  # noqa: E402
 
 MESHES = (MeshConfig(fsdp=2, tp=2), MeshConfig(dp=2, tp=2))
 TIMING_MESH = MeshConfig(fsdp=2, tp=2)
+MOE_MESHES = (MeshConfig(ep=4), MeshConfig(ep=2, tp=2))
+MOE_TIMING_MESH = MeshConfig(ep=4)
 PARITY_STEPS, TIMED_STEPS = 3, 5
 AXES = P(("dp", "fsdp"), None)
 
@@ -90,34 +102,37 @@ def _steps(step, state, batch, n, device):
     return state, torch.stack(losses).tolist(), ms
 
 
-def parity(cfg, batch, device_type, device):
+def parity(cfg, batch, device_type, device, meshes=MESHES,
+           rules=TRANSFORMER_RULES, loss_fn=chip_smoke.llama_loss):
     out = {}
     opt = adamw(3e-4, weight_decay=0.01)
-    step = make_train_step(chip_smoke.llama_loss)
+    step = make_train_step(loss_fn)
     plain = init_train_state(cfg, opt, init_params(cfg, 0, device),
                              device=device)
     _, want, _ = _steps(step, plain, batch, PARITY_STEPS, device)
     del plain
-    for mc in MESHES:
+    for mc in meshes:
         mesh = make_mesh(mc, device_type)
         state, specs = init_sharded_state(
-            mesh, cfg, init_params, TRANSFORMER_RULES, opt, cfg, 0, device)
+            mesh, cfg, init_params, rules, opt, cfg, 0, device)
         sharded = shard_train_step(step, mesh, specs, (AXES, AXES))
         _, got, _ = _steps(sharded, state, batch, PARITY_STEPS, device)
         name = str(state.model.embed.weight.device_mesh)
         out[name] = {"losses": got, "single_device_losses": want}
         if any(abs(a - b) > 2e-5 * abs(b) for a, b in zip(got, want)):
             raise AssertionError(f"{name}: losses {got} != {want}")
+        del state, sharded
     return out
 
 
-def timing(cfg, batch, device_type, device):
+def timing(cfg, batch, device_type, device, timing_mesh=TIMING_MESH,
+           rules=TRANSFORMER_RULES, loss_fn=chip_smoke.llama_loss):
     opt = adamw(3e-4, weight_decay=0.01)
-    mesh = make_mesh(TIMING_MESH, device_type)
-    state, specs = init_sharded_state(mesh, cfg, init_params,
-                                      TRANSFORMER_RULES, opt, cfg, 0, device)
-    sharded = shard_train_step(make_train_step(chip_smoke.llama_loss), mesh,
-                               specs, (AXES, AXES))
+    mesh = make_mesh(timing_mesh, device_type)
+    state, specs = init_sharded_state(mesh, cfg, init_params, rules, opt,
+                                      cfg, 0, device)
+    sharded = shard_train_step(make_train_step(loss_fn), mesh, specs,
+                               (AXES, AXES))
     state, first, _ = _steps(sharded, state, batch, 1, device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -129,7 +144,7 @@ def timing(cfg, batch, device_type, device):
            "flash_launches_per_step": counts,
            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                         if device.type == "cuda" else None)}
-    if device.type == "cuda" and set(counts.values()) != {cfg.n_layers}:
+    if device.type == "cuda" and counts != chip_smoke.flash_launches(cfg, 1):
         raise AssertionError(f"flash launches a step {counts}")
     if not all(math.isfinite(x) for x in out["losses"]):
         raise AssertionError(f"losses {out['losses']}")
@@ -140,7 +155,7 @@ def timing(cfg, batch, device_type, device):
     if dist.get_rank() == 0:
         plain = init_train_state(cfg, opt, init_params(cfg, 0, device),
                                  device=device)
-        step = make_train_step(chip_smoke.llama_loss)
+        step = make_train_step(loss_fn)
         plain, _, _ = _steps(step, plain, batch, 1, device)
         _, _, ms = _steps(step, plain, batch, TIMED_STEPS, device)
         out["single_device_ms_per_step"] = statistics.median(ms)
@@ -198,12 +213,15 @@ def rank_main(rank, world, port, device_type, small, results):
             init_method=f"tcp://localhost:{port}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=300))
         try:
-            cfg = chip_smoke.TRAIN_CFG
+            cfg, moe_cfg = chip_smoke.TRAIN_CFG, MIXTRAL_8X7B
             S = chip_smoke.TRAIN_S
             if small:
                 cfg = dataclasses.replace(cfg, vocab_size=512, d_model=128,
                                           n_heads=4, n_kv_heads=4,
                                           n_layers=2, d_ff=256)
+                moe_cfg = dataclasses.replace(moe_cfg, vocab_size=512,
+                                              d_model=128, n_heads=4,
+                                              n_kv_heads=2, d_ff=256)
                 S = 128
             g = torch.Generator().manual_seed(0)
             data = torch.randint(0, cfg.vocab_size, (chip_smoke.TRAIN_B,
@@ -216,6 +234,14 @@ def rank_main(rank, world, port, device_type, small, results):
             out["sequence_parallel"] = sequence_parallel(
                 (chip_smoke.TRAIN_B, cfg.n_heads, S, cfg.head_dim),
                 device_type, device)
+            moe_loss = chip_smoke.moe_loss_fn()
+            out["moe_parity"] = parity(
+                dataclasses.replace(moe_cfg, n_layers=1,
+                                    dtype=torch.float32),
+                batch, device_type, device, MOE_MESHES, MOE_RULES, moe_loss)
+            out["moe_timing"] = timing(
+                dataclasses.replace(moe_cfg, n_layers=2), batch, device_type,
+                device, MOE_TIMING_MESH, MOE_RULES, moe_loss)
         finally:
             dist.destroy_process_group()
         results.put((rank, None, out))
@@ -267,6 +293,9 @@ def main():
     print(json.dumps({"card": card, "world": world, **out[0],
                       "timing_ms_per_step_by_rank": [
                           out[r]["timing"]["ms_per_step"]
+                          for r in range(world)],
+                      "moe_timing_ms_per_step_by_rank": [
+                          out[r]["moe_timing"]["ms_per_step"]
                           for r in range(world)]}), flush=True)
 
 

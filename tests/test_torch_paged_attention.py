@@ -210,6 +210,10 @@ def test_entry_points_raise_without_a_card():
         make_mesh()
     with pytest.raises(RuntimeError, match="CUDA"):
         initialize_multihost("localhost:1", 1, 0)
+    from ray_tpu_torch.models import TINY_MOE
+    from ray_tpu_torch.train import adamw, init_train_state
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(TINY_MOE, adamw(3e-4))
 
 
 def test_cuda_wrappers_refuse_other_devices():

@@ -1,5 +1,6 @@
 """The port's mesh, sharding rules, sharded training step, sequence
-parallelism, pipeline and collectives against the JAX package, on the CPU.
+parallelism, pipeline, collectives and expert-parallel MoE step against
+the JAX package, on the CPU.
 
 The multi-rank checks run the port on one gloo world of 8 processes
 (tests/torch_parallel_ranks.py), spawned once by a module-scoped fixture
@@ -10,6 +11,7 @@ losses and attention outputs 2e-5, attention grads 1e-4, final parameters
 1e-4 (absolute and relative), the pipeline 1e-5.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -24,14 +26,17 @@ from jax.sharding import PartitionSpec as JP  # noqa: E402
 
 from ray_tpu import parallel as jpar  # noqa: E402
 from ray_tpu.models import llama as jl  # noqa: E402
+from ray_tpu.models import moe as jmoe  # noqa: E402
 from ray_tpu.ops import attention as jattn  # noqa: E402
 from ray_tpu.train import spmd as jspmd  # noqa: E402
 from ray_tpu_torch import parallel as tpar  # noqa: E402
 from ray_tpu_torch.models import convert  # noqa: E402
 from ray_tpu_torch.models import llama as tl  # noqa: E402
+from ray_tpu_torch.models import moe as tmoe  # noqa: E402
 from ray_tpu_torch.ops import attention as tattn  # noqa: E402
 from ray_tpu_torch.parallel import sharding as tsh  # noqa: E402
 from tests import torch_parallel_ranks as ranks  # noqa: E402
+from tests.test_torch_moe import _jax_forward_and_routing  # noqa: E402
 
 WORLD = 8
 SPAWN_TIMEOUT_S = 300
@@ -41,8 +46,26 @@ JCFG = jl.LlamaConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=8,
                       dtype=jnp.float32, attention="reference", remat=False)
 PARAM_NAMES = sorted(tl.LlamaModel(ranks.DRYRUN_CFG, device="meta")
                      .state_dict())
+MOE_PARAM_NAMES = sorted(tmoe.MoEModel(ranks.MOE_DRYRUN_CFG, device="meta")
+                         .state_dict())
 SP_CASES = [(fn, causal) for fn in ("ring", "ulysses")
             for causal in (False, True)]
+# name: (JAX config, the port's, mesh, (batch, seq)). "dryrun" is the
+# reference dryrun's part 4 (__graft_entry__.py:218-269), "tiny" the mesh
+# of tests/test_moe_generate.py::test_moe_sharded_train_step_on_mesh, and
+# "drops" the same with a capacity that drops choices on both data ranks.
+MOE_CASES = {
+    "dryrun": (jmoe.MoEConfig(vocab_size=128, d_model=64, n_layers=1,
+                              n_heads=4, n_kv_heads=4, d_ff=128, n_experts=4,
+                              experts_per_token=2, max_seq_len=32,
+                              dtype=jnp.float32, attention="reference",
+                              remat=False),
+               ranks.MOE_DRYRUN_CFG, dict(dp=2, ep=2, tp=2), (4, 16)),
+    "tiny": (jmoe.TINY_MOE, tmoe.TINY_MOE, dict(dp=2, ep=4), (4, 8)),
+    "drops": (dataclasses.replace(jmoe.TINY_MOE, capacity_factor=0.5),
+              dataclasses.replace(tmoe.TINY_MOE, capacity_factor=0.5),
+              dict(dp=2, ep=4), (4, 8)),
+}
 COLLECTIVES = ["allreduce", "allreduce_mean", "allreduce_max", "allgather",
                "reducescatter", "broadcast", "shift_right", "shift_left",
                "permute_partial", "axis_index", "allreduce_grad", "alltoall",
@@ -81,6 +104,37 @@ def _jax_dryrun():
     return params0, data, losses, jax.device_get(state.params)
 
 
+def _jax_moe(jcfg, tcfg, mesh_kw, shape, seed):
+    """The reference's sharded MoE loss and grads on conftest's 8 CPU
+    devices (params laid out by MOE_RULES, the batch over dp), and its
+    routing from one eager apply; with the port's inputs."""
+    mesh = jpar.make_mesh(jpar.MeshConfig(**mesh_kw))
+    model = jmoe.MoEModel(jcfg)
+    params = jax.device_get(model.init(jax.random.PRNGKey(seed),
+                                       jnp.zeros(shape, jnp.int32)))
+    data = np.random.default_rng(seed).integers(
+        0, jcfg.vocab_size, (shape[0], shape[1] + 1))
+    batch = (jnp.asarray(data[:, :-1], jnp.int32),
+             jnp.asarray(data[:, 1:], jnp.int32))
+
+    def loss_fn(p, b):
+        logits, st = model.apply(p, b[0], mutable=["intermediates"])
+        return (jl.cross_entropy_loss(logits, b[1])
+                + jmoe.moe_aux_loss(st["intermediates"]))
+
+    sharded = jax.tree_util.tree_map(
+        jax.device_put, params, jmoe.MOE_RULES.tree_shardings(mesh, params))
+    on_mesh = jax.device_put(batch, NamedSharding(mesh, JP(("dp", "fsdp"),
+                                                           None)))
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(sharded, on_mesh)
+    _, _, routing = _jax_forward_and_routing(model, params, batch[0])
+    return {"params": {n: t.numpy() for n, t in
+                       convert.params_from_flax(params, tcfg).items()},
+            "data": data, "loss": float(loss), "routing": routing,
+            "grads": {n: t.numpy() for n, t in convert.params_from_flax(
+                jax.device_get(grads), tcfg).items()}}
+
+
 def _qkv(seed, H):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((2, H, 256, 32), dtype=np.float32)
@@ -99,9 +153,12 @@ def jax_side():
     rng = np.random.default_rng(1)
     pipe = {"ws": (rng.standard_normal((8, 16, 16)) * 0.3).astype(np.float32),
             "x": rng.standard_normal((8, 4, 16)).astype(np.float32)}
+    moe = {name: _jax_moe(jcfg, tcfg, mesh_kw, shape, seed)
+           for seed, (name, (jcfg, tcfg, mesh_kw, shape))
+           in enumerate(MOE_CASES.items())}
     return {"params": port_params, "data": data, "losses": losses,
             "final": {n: t.numpy() for n, t in want.items()},
-            "sp": sp_inputs, "pipe": pipe}
+            "sp": sp_inputs, "pipe": pipe, "moe": moe}
 
 
 @pytest.fixture(scope="module")
@@ -112,15 +169,22 @@ def world(jax_side):
         "sequence_parallel": jax_side["sp"],
         "pipeline": jax_side["pipe"],
         "collectives": {},
+        "moe": {name: {"cfg": tcfg, "mesh": mesh_kw,
+                       "params": jax_side["moe"][name]["params"],
+                       "data": jax_side["moe"][name]["data"]}
+                for name, (_, tcfg, mesh_kw, _) in MOE_CASES.items()},
     }, timeout=SPAWN_TIMEOUT_S)
 
 
 @pytest.fixture(scope="module")
 def one(jax_side):
     """A world of one, in its own process so no process group outlives it."""
+    tiny = jax_side["moe"]["tiny"]
     return ranks.run_world(1, {"world_of_one": {
         "params": jax_side["params"], "data": jax_side["data"],
-        "attentions": ["reference", "flash"]}},
+        "attentions": ["reference", "flash"],
+        "moe": {"cfg": dataclasses.replace(tmoe.TINY_MOE, remat=True),
+                "params": tiny["params"], "data": tiny["data"]}}},
         timeout=SPAWN_TIMEOUT_S)[0]["world_of_one"]
 
 
@@ -278,12 +342,68 @@ def test_collectives(world, name):
 
 
 # ---------------------------------------------------------------------------
+# (f) the expert-parallel MoE step (ep), against JAX's 8-device run
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_sharded_loss_matches_jax(world, jax_side, case):
+    got = world[0]["moe"][case]
+    print(f"{case}: first sharded MoE step {got['step_s']:.2f} s")
+    np.testing.assert_allclose(got["loss"], jax_side["moe"][case]["loss"],
+                               rtol=2e-5, atol=0)
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_sharded_grads_match_jax(world, jax_side, case):
+    """Router, experts and every other parameter."""
+    got, want = world[0]["moe"][case]["grads"], jax_side["moe"][case]["grads"]
+    assert got.keys() == want.keys()
+    for name, g in got.items():
+        np.testing.assert_allclose(g, want[name], rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_expert_weights_shard_over_ep(world, case):
+    got = world[0]["moe"][case]
+    _, tcfg, mesh_kw, _ = MOE_CASES[case]
+    names = [a for a in ("dp", "ep", "tp") if a in mesh_kw]
+    assert got["mesh"].startswith(
+        "DeviceMesh((" + ", ".join(f"{a}={mesh_kw[a]}" for a in names))
+    placements, local = got["w_gate"]
+    # (E, M, F) by P("ep", "fsdp", "tp"): experts over ep, F over tp
+    want = {"dp": "Replicate()", "ep": "Shard(dim=0)", "tp": "Shard(dim=2)"}
+    assert placements == "(" + ", ".join(want[a] for a in names) + ")"
+    assert local == (tcfg.n_experts // mesh_kw["ep"], tcfg.d_model,
+                     tcfg.d_ff // mesh_kw.get("tp", 1))
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_sharded_routing_is_global(world, jax_side, case):
+    """Capacity and slot order over the global batch: the sharded
+    routing is the reference's single-device routing, drops included."""
+    got = world[0]["moe"][case]["routing"]
+    want = jax_side["moe"][case]["routing"]
+    _, tcfg, mesh_kw, (batch, seq) = MOE_CASES[case]
+    for layer, (g, (_, top_e, slot, keep)) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g["top_e"], top_e)
+        np.testing.assert_array_equal(g["slot"], slot)
+        np.testing.assert_array_equal(g["keep"], keep)
+    if case == "drops":
+        per_rank = np.split(keep, mesh_kw["dp"])
+        assert all((k == 0).any() for k in per_rank), \
+            [int((k == 0).sum()) for k in per_rank]
+
+
+# ---------------------------------------------------------------------------
 # A world of one: the sharded step is the single-device step, bit for bit
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("attention", ["reference", "flash"])
+@pytest.mark.parametrize("attention", ["reference", "flash", "moe"])
 def test_world_of_one_step_is_bitwise_the_plain_step(one, attention):
+    """The Llama with each attention, and the MoE model under remat."""
     got = one[attention]
     assert got["mesh"].startswith("DeviceMesh((dp=1)")
     for step in got["steps"]:
@@ -313,31 +433,45 @@ def test_mesh_config_resolution_matches_jax():
     assert tpar.data_axes() == jpar.data_axes()
 
 
-@functools.lru_cache(maxsize=1)
-def _flax_leaves():
-    """{the port's name: (flax path, leaf)}, found by converting a tree
-    whose leaves hold their own index."""
-    tree = jax.eval_shape(
-        lambda: jl.LlamaModel(JCFG).init(jax.random.PRNGKey(0),
-                                         jnp.zeros((1, 8), jnp.int32)))
+@functools.lru_cache(maxsize=2)
+def _flax_leaves(moe: bool = False):
+    """{the port's name: (flax path, leaf)} of the dryrun's Llama or MoE
+    model, found by converting a tree whose leaves hold their own index."""
+    jmodel, tcfg = ((jmoe.MoEModel(MOE_CASES["dryrun"][0]),
+                     ranks.MOE_DRYRUN_CFG) if moe
+                    else (jl.LlamaModel(JCFG), ranks.DRYRUN_CFG))
+    tree = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0),
+                                              jnp.zeros((1, 8), jnp.int32)))
     leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
     tagged = jax.tree_util.tree_unflatten(
         treedef, [np.full(leaf.shape, i, np.float32)
                   for i, (_, leaf) in enumerate(leaves)])
-    ported = convert.params_from_flax(tagged, ranks.DRYRUN_CFG)
+    ported = convert.params_from_flax(tagged, tcfg)
     return {name: leaves[int(t.reshape(-1)[0])]
             for name, t in ported.items()}
 
 
-@pytest.mark.parametrize("name", PARAM_NAMES)
-def test_spec_matches_jax_rules(name):
-    path, leaf = _flax_leaves()[name]
-    want = tuple(jpar.TRANSFORMER_RULES.spec_for(path, leaf))
+def _check_spec(name, rules, jrules, model, moe):
+    path, leaf = _flax_leaves(moe)[name]
+    want = tuple(jrules.spec_for(path, leaf))
     if jax.tree_util.keystr(path).endswith("['kernel']"):
         want = tuple(reversed(want + (None,) * (2 - len(want))))
-    meta = tl.LlamaModel(ranks.DRYRUN_CFG, device="meta").state_dict()[name]
-    got = tpar.TRANSFORMER_RULES.spec_for(name, meta)
+    got = rules.spec_for(name, model.state_dict()[name])
     assert tuple(got) == want, (name, jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("name", PARAM_NAMES)
+def test_spec_matches_jax_rules(name):
+    _check_spec(name, tpar.TRANSFORMER_RULES, jpar.TRANSFORMER_RULES,
+                tl.LlamaModel(ranks.DRYRUN_CFG, device="meta"), False)
+
+
+@pytest.mark.parametrize("name", MOE_PARAM_NAMES)
+def test_moe_spec_matches_jax_rules(name):
+    """MOE_RULES on every parameter of the MoE model, the experts' raw
+    (E, in, out) kernels untransposed."""
+    _check_spec(name, tmoe.MOE_RULES, jmoe.MOE_RULES,
+                tmoe.MoEModel(ranks.MOE_DRYRUN_CFG, device="meta"), True)
 
 
 def test_spec_clipped_to_rank():

@@ -22,13 +22,14 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch.models.llama import LlamaConfig, cross_entropy_loss
+from ray_tpu_torch.models.moe import MOE_RULES, MoEConfig, moe_aux_loss
 from ray_tpu_torch.ops.attention import ring_attention, ulysses_attention
 from torch.distributed.tensor import Replicate
 
 from ray_tpu_torch.parallel import (TRANSFORMER_RULES, MeshConfig, P,
                                     make_mesh, pipeline_apply, shard_tree,
                                     with_rules_constraint)
-from ray_tpu_torch.parallel.sharding import distribute
+from ray_tpu_torch.parallel.sharding import distribute, spec_placements
 from ray_tpu_torch.train import (adamw, init_sharded_state, init_train_state,
                                  make_train_step, reshard_to_mesh,
                                  shard_train_step)
@@ -40,6 +41,12 @@ DRYRUN_CFG = LlamaConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=8,
                          dtype=torch.float32, attention="reference",
                          remat=False)
 DRYRUN_MESH = MeshConfig(dp=2, fsdp=2, tp=2)
+# The reference dryrun's expert-parallel MoE (__graft_entry__.py:245-250).
+MOE_DRYRUN_CFG = MoEConfig(vocab_size=128, d_model=64, n_layers=1, n_heads=4,
+                           n_kv_heads=4, d_ff=128, n_experts=4,
+                           experts_per_token=2, max_seq_len=32,
+                           dtype=torch.float32, attention="reference",
+                           remat=False)
 SP_MODEL_MESH = MeshConfig(sp=8)
 DRYRUN_STEPS = 2
 LR = 1e-3
@@ -107,6 +114,14 @@ def run_world(world: int, programs: dict, timeout: float) -> list:
 def llama_loss(model, batch):
     inp, tgt = batch
     return cross_entropy_loss(model(inp), tgt)
+
+
+def moe_loss(model, batch):
+    """The MoE model's next-token loss plus its layers' aux losses."""
+    inp, tgt = batch
+    inter = {}
+    logits = model(inp, intermediates=inter)
+    return cross_entropy_loss(logits, tgt) + moe_aux_loss(inter)
 
 
 def _full(t) -> np.ndarray:
@@ -295,24 +310,31 @@ def collectives(inputs):
 
 def world_of_one(inputs):
     """shard_train_step on a world of one against make_train_step, from the
-    same params and batch, for each attention: losses and the parameters
-    that differ after each of 3 steps."""
-    params, data = inputs["params"], inputs["data"]
-    batch = (torch.from_numpy(data[:, :-1]), torch.from_numpy(data[:, 1:]))
+    same params and batch, for each attention of the Llama and for the MoE
+    model (under remat, by MOE_RULES): losses and the parameters that
+    differ after each of 3 steps."""
     mesh = make_mesh(MeshConfig(), device_type="cpu")
-    step = make_train_step(llama_loss)
+    cases = {attention: (dataclasses.replace(DRYRUN_CFG, attention=attention),
+                         inputs["params"], inputs["data"], TRANSFORMER_RULES,
+                         llama_loss)
+             for attention in inputs["attentions"]}
+    moe_case = inputs["moe"]
+    cases["moe"] = (moe_case["cfg"], moe_case["params"], moe_case["data"],
+                    MOE_RULES, moe_loss)
     out = {}
-    for attention in inputs["attentions"]:
-        cfg = dataclasses.replace(DRYRUN_CFG, attention=attention)
+    for name, (cfg, params, data, rules, loss_fn) in cases.items():
+        batch = (torch.from_numpy(data[:, :-1]),
+                 torch.from_numpy(data[:, 1:]))
+        step = make_train_step(loss_fn)
         plain = init_train_state(
             cfg, adamw(LR), {n: torch.from_numpy(a.copy())
                              for n, a in params.items()}, device="cpu")
         state, specs = init_sharded_state(
             mesh, cfg, {n: torch.from_numpy(a) for n, a in params.items()},
-            TRANSFORMER_RULES, adamw(LR))
+            rules, adamw(LR))
         sharded = shard_train_step(step, mesh, specs,
                                    (P(("dp", "fsdp"), None),) * 2)
-        res = out[attention] = {
+        res = out[name] = {
             "mesh": str(state.model.embed.weight.device_mesh), "steps": []}
         for _ in range(3):
             plain, m = step(plain, batch)
@@ -324,3 +346,40 @@ def world_of_one(inputs):
                     n for n, p in plain.model.named_parameters()
                     if not torch.equal(p, got[n].full_tensor()))})
     return out
+
+
+def moe(inputs):
+    """For each case {"cfg", "mesh", "params", "data"}: a forward without
+    grad that records the routing, then one shard_train_step of the MoE
+    model laid out by MOE_RULES; the step's loss, every gradient, and
+    w_gate's placements and local shape."""
+    out = {}
+    axes = P(("dp", "fsdp"), None)
+    for name, case in inputs.items():
+        cfg, data = case["cfg"], case["data"]
+        mesh = make_mesh(MeshConfig(**case["mesh"]), device_type="cpu")
+        state, specs = init_sharded_state(
+            mesh, cfg, {n: torch.from_numpy(a) for n, a in
+                        case["params"].items()}, MOE_RULES, adamw(LR))
+        wg = state.model.layers[0].moe.w_gate
+        lmesh = wg.device_mesh
+        batch = (torch.from_numpy(data[:, :-1]), torch.from_numpy(data[:, 1:]))
+        inter = {}
+        with torch.no_grad():
+            state.model(distribute(batch[0], lmesh,
+                                   spec_placements(axes, lmesh)),
+                        intermediates=inter)
+        routing = [{k: _full(v) for k, v in
+                    inter[f"layers_{i}/moe/routing"].items()}
+                   for i in range(cfg.n_layers)]
+        step = shard_train_step(make_train_step(moe_loss), mesh, specs,
+                                (axes, axes))
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        out[name] = {
+            "loss": metrics["loss"].item(), "step_s": time.perf_counter() - t0,
+            "grads": {n: _full(p.grad) for n, p in
+                      state.model.named_parameters()},
+            "routing": routing, "mesh": str(lmesh),
+            "w_gate": (str(wg.placements), tuple(wg.to_local().shape))}
+    return out if dist.get_rank() == 0 else None
