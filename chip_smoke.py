@@ -22,16 +22,38 @@ Phases, in order; a failure in any of them ends the run with an error:
              outside the timed inputs, each kernel at length 0 (the
              mean of V over the whole table, as the reference gives it).
 3. parity  - LLAMA3_8B widths at 2 layers in f32: the dense-cache
-             Generator (no kernel) and the paged LLMEngine (kernel)
-             decode 16 greedy tokens for 4 prompts and must agree; a
-             divergence passes only at a near-tie (top-2 gap < 1e-3).
+             Generator (no kernel) decodes 16 greedy tokens for 4
+             prompts of 5-100 tokens, and three engines must agree with
+             it: the paged LLMEngine (kernel), the dense engine and the
+             dense engine with prefill_chunk=16 (the 64- and 100-token
+             prompts in 4 and 7 chunks), each decode chunk a replay of
+             the engine's CUDA graph; a divergence passes only at a
+             near-tie (top-2 gap < 1e-3).
 4. serving - LLAMA3_8B at full width and depth in bf16, random weights
              from seed 0, behind LLMServer(max_batch=8, max_len=512,
-             page_size=64, decode_chunk=8): after a warm-up burst, 8
-             greedy prompts of 17-200 tokens and one sampled request
-             (temperature 0.8, top-k 50, top-p 0.9), 32 new tokens each,
-             sent together. Launch counts are set to 0 just before the
-             requests and read just after them.
+             page_size=64, decode_chunk=8): after a warm-up burst (which
+             also captures the decode graph), 8 greedy prompts of 17-200
+             tokens and one sampled request (temperature 0.8, top-k 50,
+             top-p 0.9), 32 new tokens each, sent together. Launch
+             counts are set to 0 just before the requests and read just
+             after them. A wrapper counts a launch where Python launches
+             it, and under the graph that is once, at capture: so a
+             kernel's launches on this path are its eager ones plus the
+             ones recorded in the graph times the graph's replays, and
+             K3's must cover n_layers x the decode steps.
+4b. serving modes - the same weights, shared by every engine: the dense
+             engine serves phase 4's requests; a dense engine with
+             prefill_chunk=64 takes a 448-token prompt (7 chunks) while
+             two 16-token streams decode, which must keep emitting;
+             drain round trips paged -> dense and dense -> paged: two
+             streams on a 4-token stream buffer are read for 3 tokens,
+             park, are quiesced and snapshotted, and resume through
+             submit_prefilled in an engine of the other mode. The
+             consumer's tokens (read, replayed from the snapshot's
+             history, resumed) must be the uninterrupted stream: every
+             token once, the replayed ones exactly, a divergence after
+             the resume only at a near-tie (top-2 gap < 2^-6 of the top
+             logit, bf16), and every KV page back in its pool.
 5. flash   - the flash attention kernels (forward; backward = delta
              pre-pass, dK/dV and dQ kernels) against their plain
              versions: f32 and bf16, causal or not, D in {64, 128}, S in
@@ -97,8 +119,9 @@ Phases, in order; a failure in any of them ends the run with an error:
              n_layers and K1-bwd n_layers times a step; ms per step,
              tokens/s, MFU (6N of the active parameters) and peak memory.
 
-Prints the kernels as one JSON line (a flash kernel's `launches` from
-the training phase, `sharded_launches` from the sharded one,
+Prints the kernels as one JSON line (a paged kernel's `launches` from
+the serving phase, graph replays included; a flash kernel's from the
+training phase, `sharded_launches` from the sharded one,
 `moe_launches` from the MoE training phase and `moe_sharded_launches`
 from phase 9's sharded steps), the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -136,7 +159,7 @@ from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.parallel import (TRANSFORMER_RULES, MeshConfig, P,
                                     initialize_multihost, make_mesh,
                                     pipeline_apply)
-from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
+from ray_tpu_torch.serve.llm import LLMEngine, LLMServer, _Prefilled
 from ray_tpu_torch.train import (adamw, init_sharded_state, init_train_state,
                                  make_train_step, shard_train_step)
 from ray_tpu_torch.util.collective import ops as col
@@ -380,14 +403,41 @@ def kernel_phase(card: str) -> dict:
 
 
 @torch.no_grad()
-def top2_gap(model, cfg, tokens) -> float:
-    """Dense-oracle top-2 logit gap after `tokens`."""
-    t = torch.tensor([tokens], device="cuda")
-    pos = torch.arange(len(tokens), device="cuda")[None]
+def top2(model, cfg, tokens) -> tuple[float, float]:
+    """Dense-oracle top-2 logit gap after `tokens`, and the top logit."""
+    dev = model.embed.weight.device
+    t = torch.tensor([tokens], device=dev)
+    pos = torch.arange(len(tokens), device=dev)[None]
     logits, _ = model(t, pos, kv_caches=init_kv_caches(cfg, 1, len(tokens),
-                                                       "cuda"))
-    top = torch.topk(logits[0, -1], 2).values
-    return (top[0] - top[1]).item()
+                                                       dev))
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return (top[0] - top[1]).item(), top[0].item()
+
+
+def hold_greedy(what: str, model, cfg, prompt, toks, want, tie: float,
+                replayed: int = 0) -> None:
+    """`toks` must equal `want`, or first diverge from it at a near-tie:
+    the oracle's top-2 gap there below `tie`, for bf16 `tie` times the top
+    logit's size (at least 1). The first `replayed` tokens must be equal
+    whatever the gap."""
+    if toks == want:
+        return
+    n = min(len(toks), len(want))
+    j = next((i for i, (a, b) in enumerate(zip(toks, want)) if a != b), n)
+    if j == n or j < replayed:
+        raise AssertionError(f"{what}: {toks} != {want}")
+    gap, top = top2(model, cfg, prompt + want[:j])
+    limit = tie * (max(abs(top), 1.0) if cfg.dtype == torch.bfloat16 else 1)
+    log(f"{what}: prompt of {len(prompt)} diverges at token {j}, top-2 gap "
+        f"{gap:.3g} (limit {limit:.3g})")
+    if not gap < limit:
+        raise AssertionError(f"{what}: {toks} != {want}")
+
+
+# LLMEngine options of the parity phase, each held against the Generator.
+PARITY_ENGINES = {"paged engine": {"page_size": PAGE},
+                  "dense engine": {},
+                  "dense engine, prefill_chunk=16": {"prefill_chunk": 16}}
 
 
 def parity_phase():
@@ -400,43 +450,49 @@ def parity_phase():
     prompts = [[int(x) for x in rng.integers(1, cfg.vocab_size, n)]
                for n in (5, 17, 64, 100)]
     n_new = 16
-    eng = LLMEngine(cfg, params, max_batch=4, max_len=256, page_size=PAGE,
-                    decode_chunk=CHUNK)
-    try:
-        handles = [eng.submit(p, SamplingParams(max_new_tokens=n_new))
-                   for p in prompts]
-        got = [h.tokens() for h in handles]
-    finally:
-        eng.shutdown()
-    for p, toks in zip(prompts, got):
+    wants = []
+    for p in prompts:
         gen = Generator(cfg, params, batch=1, max_len=len(p) + n_new)
-        want = gen.generate([p], SamplingParams(max_new_tokens=n_new))[0]
-        want = [int(x) for x in want]
-        if toks == want:
-            continue
-        j = next(i for i, (a, b) in enumerate(zip(toks, want)) if a != b) \
-            if len(toks) == len(want) else min(len(toks), len(want))
-        gap = top2_gap(gen.model, cfg, p + want[:j])
-        log(f"parity: prompt of {len(p)} diverges at token {j}, "
-            f"top-2 gap {gap:.3g}")
-        if not gap < 1e-3:
-            raise AssertionError(f"engine {toks} != generator {want}")
-    log(f"parity: {len(prompts)} prompts x {n_new} greedy tokens, "
-        "paged engine == dense Generator")
+        wants.append([int(x) for x in gen.generate(
+            [p], SamplingParams(max_new_tokens=n_new))[0]])
+    oracle = gen.model  # the dense-cache model on the same weights
+    for name, opts in PARITY_ENGINES.items():
+        eng = LLMEngine(cfg, params, max_batch=4, max_len=256,
+                        decode_chunk=CHUNK, **opts)
+        try:
+            handles = [eng.submit(p, SamplingParams(max_new_tokens=n_new))
+                       for p in prompts]
+            got = [h.tokens() for h in handles]
+        finally:
+            eng.shutdown()
+        recorded = eng.graph_launches[ON_PATH]
+        if not eng.graph_replays or recorded != (
+                cfg.n_layers * CHUNK if "page_size" in opts else 0):
+            raise AssertionError(f"{name}: {eng.graph_replays} graph replays"
+                                 f", {recorded} {ON_PATH} launches a replay")
+        for p, toks, want in zip(prompts, got, wants):
+            hold_greedy(f"parity: {name}", oracle, cfg, p, toks, want,
+                        1e-3)
+        log(f"parity: {len(prompts)} prompts x {n_new} greedy tokens, {name}"
+            f" (decode graph replayed {eng.graph_replays} times, {recorded} "
+            f"{ON_PATH} launches each) == dense Generator")
 
 
-def serving_phase(card: str, window=None) -> dict:
-    """Serves the 9 requests through LLMServer; `window` (a context
-    manager, such as a torch.profiler.profile) wraps just the timed part."""
-    cfg = LLAMA3_8B
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0)
-    server = LLMServer(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
-                       page_size=PAGE, decode_chunk=CHUNK)
-    del params  # the engine's model holds the same tensors
-    eng = server.engine
-    log(f"serving: LLAMA3_8B bf16 weights ready in "
-        f"{time.perf_counter() - t0:.1f} s")
+def pages_returned(eng, timeout: float = 10.0) -> bool:
+    """Whether every KV page of a paged engine is back in its pool (less
+    the dummy page), waiting up to `timeout`: a stream's pages return just
+    after its last token."""
+    deadline = time.time() + timeout
+    while eng.page_size and time.time() < deadline \
+            and eng._alloc.free_pages != eng._alloc.num_pages - 1:
+        time.sleep(0.01)
+    return not eng.page_size or \
+        eng._alloc.free_pages == eng._alloc.num_pages - 1
+
+
+def serving_payloads(cfg):
+    """The serving phase's requests: 8 greedy prompts of 17-200 tokens and
+    one sampled request, 32 new tokens each; and a warm-up burst."""
     rng = np.random.default_rng(2)
 
     def prompt(n):
@@ -448,6 +504,20 @@ def serving_phase(card: str, window=None) -> dict:
     payloads.append({"prompt_tokens": prompt(int(rng.integers(17, 201))),
                      "max_new_tokens": n_new, "temperature": 0.8,
                      "top_k": 50, "top_p": 0.9})
+    warm = [{"prompt_tokens": prompt(64), "max_new_tokens": 8}
+            for _ in range(MAX_BATCH)]
+    return payloads, warm
+
+
+def serve_payloads(server, cfg, window=None) -> dict:
+    """Sends the warm-up burst (it also captures the decode graph), then
+    the payloads together, each consumed on its own thread; `window` (a
+    context manager, such as a torch.profiler.profile) wraps just the
+    timed part. Launch counts are set to 0 just before the requests and
+    read just after them. Checks every stream and returns the run's
+    figures."""
+    eng = server.engine
+    payloads, warm = serving_payloads(cfg)
     results = [{} for _ in payloads]
 
     def consume(payload, rec):
@@ -461,59 +531,226 @@ def serving_phase(card: str, window=None) -> dict:
             rec["error"] = e
         rec["tokens"], rec["end"] = toks, time.perf_counter()
 
-    try:
-        warm = [{"prompt_tokens": prompt(64), "max_new_tokens": 8}
-                for _ in range(MAX_BATCH)]
-        handles = [eng.submit(w["prompt_tokens"],
-                              SamplingParams(max_new_tokens=8)) for w in warm]
-        for h in handles:
-            h.tokens()
-
+    handles = [eng.submit(w["prompt_tokens"], SamplingParams(max_new_tokens=8))
+               for w in warm]
+    for h in handles:
+        h.tokens()
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    steps0, replays0 = eng.decode_steps, eng.graph_replays
+    with window or contextlib.nullcontext():
+        start = time.perf_counter()
+        threads = []
+        for payload, rec in zip(payloads, results):
+            rec["submit"] = time.perf_counter()
+            th = threading.Thread(target=consume, args=(payload, rec))
+            th.start()
+            threads.append(th)
+        for th in threads:
+            th.join(600)
         torch.cuda.synchronize()
-        pa.reset_launch_counts()
-        steps0 = eng.decode_steps
-        with window or contextlib.nullcontext():
-            start = time.perf_counter()
-            threads = []
-            for payload, rec in zip(payloads, results):
-                rec["submit"] = time.perf_counter()
-                th = threading.Thread(target=consume, args=(payload, rec))
-                th.start()
-                threads.append(th)
-            for th in threads:
-                th.join(600)
-            torch.cuda.synchronize()
-        counts = dict(pa.launch_counts)
-        steps = eng.decode_steps - steps0
-        deadline = time.time() + 10   # pages free just after the last token
-        while eng._alloc.free_pages != eng._alloc.num_pages - 1 \
-                and time.time() < deadline:
-            time.sleep(0.01)
-        free, total = eng._alloc.free_pages, eng._alloc.num_pages - 1
-    finally:
-        eng.shutdown()
-
+    counts = dict(pa.launch_counts)
+    steps = eng.decode_steps - steps0
+    replays = eng.graph_replays - replays0
+    if not pages_returned(eng):
+        raise AssertionError("KV pages not returned")
     for rec, payload in zip(results, payloads):
-        if "error" in rec or len(rec.get("tokens", [])) != n_new:
+        if "error" in rec or len(rec.get("tokens", [])) != \
+                payload["max_new_tokens"]:
             raise AssertionError(f"request of {len(payload['prompt_tokens'])}"
                                  f" tokens: {rec}")
         if not all(0 <= t < cfg.vocab_size for t in rec["tokens"]):
             raise AssertionError(f"token out of the vocabulary: {rec}")
-    if free != total:
-        raise AssertionError(f"{total - free} KV pages not returned")
-    if counts[ON_PATH] < cfg.n_layers * steps or steps == 0:
-        raise AssertionError(f"{ON_PATH} launched {counts[ON_PATH]} times "
-                             f"for {steps} decode steps of {cfg.n_layers} "
-                             "layers")
+    if steps == 0 or replays * CHUNK != steps:
+        raise AssertionError(f"{steps} decode steps in {replays} replays of "
+                             "the decode graph")
     wall = max(r["end"] for r in results) - start
     ttft = sorted((r["first"] - r["submit"]) * 1e3 for r in results)
     n_tok = sum(len(r["tokens"]) for r in results)
-    log("serving: " + json.dumps({
-        "card": card, "requests": len(results), "failed": 0,
-        "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-        "ttft_p50_ms": statistics.median(ttft), "ttft_max_ms": ttft[-1],
-        "decode_steps": steps, "launches": counts}))
-    return counts
+    # The wrappers count a launch where Python launches it: under the
+    # graph, once at capture, so a replay's launches are the graph's.
+    graph = {k: n * replays for k, n in eng.graph_launches.items()}
+    return {"requests": len(results), "failed": 0, "tokens": n_tok,
+            "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ttft_p50_ms": statistics.median(ttft), "ttft_max_ms": ttft[-1],
+            "decode_steps": steps, "graph_replays": replays,
+            "eager_launches": counts, "graph_launches": graph,
+            "launches": {k: counts[k] + graph[k] for k in counts}}
+
+
+def serving_weights() -> dict:
+    """LLAMA3_8B's bf16 weights from seed 0, on the card."""
+    t0 = time.perf_counter()
+    params = init_params(LLAMA3_8B, seed=0)
+    log(f"serving: LLAMA3_8B bf16 weights ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def serving_phase(card: str, window=None, params=None) -> dict:
+    """Serves the 9 requests through LLMServer over the paged engine, its
+    decode chunk a CUDA graph; returns the kernels' launches."""
+    cfg = LLAMA3_8B
+    if params is None:
+        params = serving_weights()
+    server = LLMServer(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                       page_size=PAGE, decode_chunk=CHUNK)
+    del params  # the engine's model holds the same tensors
+    try:
+        run = serve_payloads(server, cfg, window)
+    finally:
+        server.engine.shutdown()
+    launches = run["launches"]
+    if launches[ON_PATH] < cfg.n_layers * run["decode_steps"]:
+        raise AssertionError(f"{ON_PATH} launched {launches[ON_PATH]} times "
+                             f"for {run['decode_steps']} decode steps of "
+                             f"{cfg.n_layers} layers")
+    log("serving: " + json.dumps({"card": card, **run}))
+    return launches
+
+
+def chunked_prefill_check(cfg, params) -> dict:
+    """A dense engine with prefill_chunk=64 takes a 448-token prompt (7
+    chunks) while two 16-token streams decode: the short streams must
+    keep emitting while the long prompt prefills."""
+    rng = np.random.default_rng(3)
+    short = [[int(x) for x in rng.integers(1, cfg.vocab_size, 16)]
+             for _ in range(2)]
+    long_prompt = [int(x) for x in rng.integers(1, cfg.vocab_size, 448)]
+    n_chunks = -(-len(long_prompt) // 64)
+    eng = LLMEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                    decode_chunk=CHUNK, prefill_chunk=64)
+    arrivals = [[] for _ in short]  # (time, engine decode steps) a token
+
+    def consume(handle, out):
+        for _tok in handle:
+            out.append((time.perf_counter(), eng.decode_steps))
+
+    try:
+        # A first request captures the decode graph, outside the window.
+        eng.generate(short[0], SamplingParams(max_new_tokens=CHUNK))
+        handles = [eng.submit(p, SamplingParams(max_new_tokens=128))
+                   for p in short]
+        threads = [threading.Thread(target=consume, args=(h, a))
+                   for h, a in zip(handles, arrivals)]
+        for th in threads:
+            th.start()
+        deadline = time.time() + 120
+        while not all(arrivals) and time.time() < deadline:
+            time.sleep(0.001)
+        t_submit, steps_submit = time.perf_counter(), eng.decode_steps
+        long_handle = eng.submit(long_prompt, SamplingParams(max_new_tokens=32))
+        it = iter(long_handle)
+        next(it)
+        t_first, steps_first = time.perf_counter(), eng.decode_steps
+        n_long = 1 + len(list(it))
+        for th in threads:
+            th.join(600)
+    finally:
+        eng.shutdown()
+    if n_long != 32 or any(len(a) != 128 for a in arrivals):
+        raise AssertionError(f"chunked prefill: {n_long} long-prompt tokens, "
+                             f"{[len(a) for a in arrivals]} short-stream")
+    during = [[s for t, s in a if t_submit <= t <= t_first] for a in arrivals]
+    ticks = (steps_first - steps_submit) // CHUNK
+    gaps = [max((b - a) // CHUNK for a, b in zip(d, d[1:])) if len(d) > 1
+            else None for d in during]
+    figures = {"prefill_chunks": n_chunks, "long_ttft_ms":
+               (t_first - t_submit) * 1e3, "decode_ticks_during_prefill":
+               ticks, "short_tokens_during_prefill": [len(d) for d in during],
+               "max_ticks_between_short_tokens": gaps}
+    # Each prefill chunk's tick but the last runs a decode chunk after it.
+    if ticks < n_chunks - 1 or min(len(d) for d in during) < \
+            (n_chunks - 2) * CHUNK:
+        raise AssertionError(f"the short streams stalled: {figures}")
+    return figures
+
+
+# A bf16 divergence passes where the oracle's top-2 gap is below 2^-6 of
+# the top logit (four bf16 ulps): the paged kernel and the dense einsum
+# round attention outputs to bf16 at different points.
+BF16_TIE = 2 ** -6
+ENGINE_MODES = {"paged": {"page_size": PAGE}, "dense": {}}
+
+
+def drain_round_trip(cfg, params, src: str, dst: str) -> dict:
+    """Two streams on a `src` engine with a 4-token stream buffer, each
+    read for 3 tokens and left to park; then quiesce, snapshot and
+    submit_prefilled into a `dst` engine. What the consumer gets (the
+    tokens it read, the snapshot's history it never received, then the
+    resumed stream) must be the uninterrupted stream on the `src` engine:
+    every token once, the replayed part exactly, and past the resume a
+    divergence only at a near-tie."""
+    rng = np.random.default_rng(4)
+    prompts = [[int(x) for x in rng.integers(1, cfg.vocab_size, n)]
+               for n in (40, 90)]
+    sp = SamplingParams(max_new_tokens=32)
+    a = LLMEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                  decode_chunk=CHUNK, stream_buffer=4, **ENGINE_MODES[src])
+    b = None
+    try:
+        want = [h.tokens() for h in [a.submit(p, sp) for p in prompts]]
+        handles = [a.submit(p, sp, tag=f"s{i}")
+                   for i, p in enumerate(prompts)]
+        its = [iter(h) for h in handles]
+        seen = [[next(it) for _ in range(3)] for it in its]
+        deadline = time.time() + 60
+        while not all(h.backlog_full() for h in handles) \
+                and time.time() < deadline:
+            time.sleep(0.005)
+        if not a.quiesce_for_drain():
+            raise AssertionError("drain: the engine did not quiesce")
+        snaps = a.snapshot_active_streams()
+        b = LLMEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                      decode_chunk=CHUNK, **ENGINE_MODES[dst])
+        got, replayed = [], []
+        for i, s in enumerate(seen):
+            snap = snaps[f"s{i}"]
+            if snap["history"][:len(s)] != s:
+                raise AssertionError(f"drain: history {snap['history']} "
+                                     f"does not start with {s}")
+            pack = _Prefilled(snap["kv"], snap["token"], snap["prompt_len"],
+                              snap["lens"], snap["generated"],
+                              snap["history"], emit_first=False)
+            handle = b.submit_prefilled(pack, sp)
+            got.append(s + snap["history"][len(s):] + handle.tokens())
+            replayed.append(len(snap["history"]))
+        returned = pages_returned(b)
+    finally:
+        a.shutdown()   # fails the drained streams' handles on `a`
+        if b is not None:
+            b.shutdown()
+    if not (returned and pages_returned(a, 0)):
+        raise AssertionError(f"drain: {src} -> {dst} left KV pages")
+    for p, toks, w, n in zip(prompts, got, want, replayed):
+        hold_greedy(f"drain {src} -> {dst}", b.model, cfg, p, toks, w,
+                    BF16_TIE, replayed=n)
+    return {"streams": len(got), "tokens": [len(t) for t in got],
+            "read_before_drain": [len(s) for s in seen],
+            "replayed_from_history": [n - len(s) for n, s in
+                                      zip(replayed, seen)],
+            "equal_to_uninterrupted": [t == w for t, w in zip(got, want)],
+            "kv_dtype": str(snaps["s0"]["kv"][0][0].dtype)}
+
+
+def serving_modes_phase(card: str, params) -> None:
+    """LLAMA3_8B bf16, the serving phase's weights shared by every engine:
+    the dense engine serves the serving phase's requests, chunked prefill
+    keeps short streams emitting, and drained streams resume in an engine
+    of the other mode, both ways."""
+    cfg = LLAMA3_8B
+    server = LLMServer(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                       decode_chunk=CHUNK)
+    try:
+        run = serve_payloads(server, cfg)
+    finally:
+        server.engine.shutdown()
+    log("serving modes: dense engine: " + json.dumps({"card": card, **run}))
+    log("serving modes: chunked prefill: "
+        + json.dumps(chunked_prefill_check(cfg, params)))
+    for src, dst in (("paged", "dense"), ("dense", "paged")):
+        log(f"serving modes: drain {src} -> {dst}: "
+            + json.dumps(drain_round_trip(cfg, params, src, dst)))
 
 
 def flash_bound_ms(B, H, Sq, Sk, D, causal, dtype, card, backward):
@@ -1082,7 +1319,10 @@ def main():
     rows = run_phase("kernels", kernel_phase, card)
     flash_rows = run_phase("flash", flash_kernel_phase, card)
     run_phase("parity", parity_phase)
-    counts = run_phase("serving", serving_phase, card)
+    serve_params = serving_weights()
+    counts = run_phase("serving", serving_phase, card, None, serve_params)
+    run_phase("serving modes", serving_modes_phase, card, serve_params)
+    del serve_params
     run_phase("train parity", train_parity_phase)
     flash_counts = run_phase("training", training_phase, card)
     sharded_counts = run_phase("sharded training", sharded_training_phase,

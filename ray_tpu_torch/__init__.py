@@ -8,7 +8,8 @@ module layout and names so each counterpart is easy to find:
   PyTorch version, and the host-side `PageAllocator`.
 - `ray_tpu_torch.models`: the Llama decoder, flax weight conversion and
   the dense-cache `Generator`.
-- `ray_tpu_torch.serve.llm`: the paged continuous-batching `LLMEngine`.
+- `ray_tpu_torch.serve.llm`: the continuous-batching `LLMEngine` over a
+  dense or a paged KV cache, its decode chunk a CUDA graph on the card.
 
 Nothing here imports jax or ray_tpu, and importing a module does no CUDA
 work: kernels are built with nvcc at first use (`_build.py`). Entry

@@ -7,7 +7,8 @@ head_dim), RMSNorm in f32 with f32 scales (flax's default param dtype).
 
 `Attention` has three branches, chosen by the cache it is given: the
 paged pool (batched single-token decode through the paged decode kernel),
-a dense per-sequence cache (prefill and the Generator's decode), and no
+a dense per-sequence cache (prefill, the Generator's decode, and the
+dense engine's decode with a write offset per row), and no
 cache (training and full forwards: `attention="flash"` through the flash
 kernels, `"reference"`, or the sequence-parallel `"ring"` and `"ulysses"`
 over the mesh's sp axis).
@@ -187,10 +188,24 @@ class Attention(nn.Module):
         new_cache = None
         if kv_cache is not None:
             # Append to the dense cache at cache_len, in place (a cache
-            # belongs to one prefill or one generate call).
+            # belongs to one prefill or one generate call, or to the
+            # dense engine's slots).
             ck, cv, cache_len = kv_cache
-            ck[:, :, cache_len:cache_len + S] = k
-            cv[:, :, cache_len:cache_len + S] = v
+            if torch.is_tensor(cache_len):
+                # Per-row offsets, the port of the reference engine's vmap
+                # over one sequence's decode step: row b writes at
+                # cache_len[b]. An offset past the cache lands on its last
+                # row, as dynamic_update_slice clamps it. No host sync.
+                if S != 1:
+                    raise ValueError("per-row cache offsets take one token "
+                                     f"a row, got {S}")
+                rows = torch.arange(B, device=x.device)
+                at = cache_len.long().clamp_max(ck.shape[2] - 1)
+                ck[rows, :, at] = k[:, :, 0]
+                cv[rows, :, at] = v[:, :, 0]
+            else:
+                ck[:, :, cache_len:cache_len + S] = k
+                cv[:, :, cache_len:cache_len + S] = v
             k, v = ck, cv
             new_cache = (ck, cv, cache_len + S)   # before the GQA repeat
 

@@ -1,30 +1,39 @@
-"""Continuous-batching LLM engine over a paged KV pool. Port of the paged
-mode of ray_tpu/serve/llm.py.
+"""Continuous-batching LLM engine over a dense or a paged KV cache. Port
+of ray_tpu/serve/llm.py.
 
 - **Slot-based continuous batching.** The decode batch is a fixed set of
   `max_batch` slots; new requests prefill into free slots while the other
   slots keep decoding.
-- **Paged KV.** Slots share one pool of fixed-size KV pages per layer and
-  attend over their page tables through the paged decode kernel
-  (ops/paged_attention.py); `PageAllocator` keeps the free list on the
-  host. Memory is bounded by `kv_pool_tokens` resident tokens: admission
-  defers requests while the pool is dry, and pages return to the free
-  list the moment a stream completes.
-- **Batched prefill.** Same-bucket admissions prefill together at a fixed
-  width W = min(8, max_batch); a lone request takes the single-sequence
-  path. Prefill runs the dense-cache branch and scatters its KV into the
-  sequence's pages.
+- **Dense KV (page_size=0).** One (max_batch, Hkv, max_len, D) cache
+  pair per layer; each slot writes its decode step at its own offset
+  (the model's per-row cache offsets, the port of the reference's vmap
+  over one sequence's decode step).
+- **Paged KV (page_size > 0).** Slots share one pool of fixed-size KV
+  pages per layer and attend over their page tables through the paged
+  decode kernel (ops/paged_attention.py); `PageAllocator` keeps the free
+  list on the host. Memory is bounded by `kv_pool_tokens` resident
+  tokens: admission defers requests while the pool is dry, and pages
+  return to the free list the moment a stream completes. Same-bucket
+  admissions prefill together at a fixed width W = min(8, max_batch).
+- **Chunked prefill (dense only, prefill_chunk > 0).** A prompt longer
+  than a chunk prefills one chunk a tick, interleaved with decoding, so
+  a long prompt does not stall the streams in flight.
 - **Chunked decode.** Each engine tick runs `decode_chunk` steps with
   sampling on the device; only the (K, B) token block reaches the host.
+  On CUDA the chunk is one captured CUDA graph per engine, replayed
+  every tick (the reference's one jitted decode program): the host's
+  slot state is copied into static device buffers, the graph replays,
+  and its output buffer is read. On the CPU the chunk runs eagerly.
 - **Streaming with backpressure.** `submit()` returns a handle whose
   bounded queue yields tokens as they are produced; a consumer that stops
   draining parks its slot.
+- **Drain and resume.** `quiesce_for_drain()` pauses the loop at a tick
+  boundary, `snapshot_active_streams()` copies each decoding stream's KV
+  and cursor to the host, and `submit_prefilled()` resumes it in another
+  engine (of either mode, or from the JAX engine's snapshot).
 
-The engine thread owns the device: it makes the engine's device current
-and launches on that thread's current stream. Not ported yet (ROADMAP
-queue A, "dense engine mode, chunked prefill, submit_prefilled/drain
-snapshot and disagg"): the dense mode (page_size=0), chunked prefill,
-`submit_prefilled` and `snapshot_active_streams`.
+The engine thread owns the device: it makes the engine's device current,
+launches on that thread's current stream and captures the decode graph.
 """
 
 from __future__ import annotations
@@ -33,28 +42,56 @@ import queue
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ray_tpu_torch._device import device_context, resolve_device
 from ray_tpu_torch.models.generate import SamplingParams, categorical
 from ray_tpu_torch.models.llama import (LlamaConfig, LlamaModel, PagedKVCache,
                                         init_kv_caches)
-from ray_tpu_torch.ops.paged_attention import PageAllocator
+from ray_tpu_torch.ops.paged_attention import PageAllocator, launch_counts
 
 _NEG_INF = -1e30
-_NOT_PORTED = ("is not ported yet (ROADMAP queue A: dense engine mode, "
-               "chunked prefill, submit_prefilled/drain snapshot and disagg)")
 
 
 @dataclass
 class _Slot:
     request: "RequestHandle | None" = None
     generated: int = 0
-    seq_id: str = ""  # allocator key owning this slot's pages
+    # Chunked prefill in progress: the whole prompt and how much of it is
+    # in this slot's cache row. None = decoding.
+    prefill_prompt: "np.ndarray | None" = None
+    prefill_pos: int = 0
+    seq_id: str = ""  # paged mode: allocator key owning this slot's pages
+    # Every token this stream has generated, the ones still queued in the
+    # handle included: a drain snapshot ships it so that a resumed stream
+    # can deliver again exactly the tokens its consumer never received.
+    history: list = field(default_factory=list)
+
+
+class _Prefilled:
+    """Admission payload for a request whose prefill ran in another engine
+    (a disaggregated prefill pool, or a stream resumed after a drain): the
+    per-layer KV prefix and the decode cursor."""
+
+    __slots__ = ("kv_layers", "token", "prompt_len", "lens", "generated",
+                 "history", "emit_first")
+
+    def __init__(self, kv_layers, token, prompt_len, lens, generated,
+                 history, emit_first):
+        # [(k, v)] per layer, each (Hkv, >= lens, D): numpy arrays or CPU
+        # tensors (a snapshot's bf16 KV can only be a tensor).
+        self.kv_layers = kv_layers
+        self.token = int(token)      # next decode input (last sampled)
+        self.prompt_len = int(prompt_len)
+        self.lens = int(lens)        # valid KV entries
+        self.generated = int(generated)
+        self.history = list(history or [])
+        self.emit_first = bool(emit_first)
 
 
 class RequestHandle:
@@ -68,7 +105,7 @@ class RequestHandle:
                  max_buffered: int = 256, tag: str = ""):
         self.prompt_len = prompt_len
         self.sampling = sampling
-        self.tag = tag
+        self.tag = tag  # snapshot key of the stream
         self._q: queue.Queue = queue.Queue(maxsize=max(1, max_buffered))
         self._done = threading.Event()
         self._submit_ts = time.monotonic()
@@ -119,8 +156,9 @@ class LLMEngine:
 
     params: the model's state_dict (models.convert.init_params or
     params_from_flax). device: None means CUDA and raises without a card.
-    use_device_plane: kept for the signature of the JAX engine; the paged
-    path hands KV from prefill to decode in place and never uses it."""
+    use_device_plane: kept for the signature of the JAX engine; both modes
+    hand KV from prefill to decode in place, the same-process route of the
+    reference's device-plane handoff (the device plane is not ported)."""
 
     def __init__(self, cfg: LlamaConfig, params, *, max_batch: int = 4,
                  max_len: int = 1024, decode_chunk: int = 8,
@@ -128,49 +166,108 @@ class LLMEngine:
                  page_size: int = 0, kv_pool_tokens: int = 0,
                  use_device_plane: bool = True, stream_buffer: int = 256,
                  device=None):
-        if not page_size:
-            raise NotImplementedError(f"dense engine mode (page_size=0) "
-                                      f"{_NOT_PORTED}")
-        if prefill_chunk:
-            raise NotImplementedError(f"chunked prefill {_NOT_PORTED}")
-        if max_len % page_size:
-            raise ValueError(f"max_len={max_len} must be a multiple of "
-                             f"page_size={page_size}")
+        if page_size:
+            if max_len % page_size:
+                raise ValueError(f"max_len={max_len} must be a multiple of "
+                                 f"page_size={page_size}")
+            if prefill_chunk:
+                raise ValueError(
+                    "chunked prefill is not supported in paged mode")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
         self.page_size = page_size
+        # >0: prompts longer than this prefill in chunks interleaved with
+        # decode ticks. 0: whole-prompt bucketed prefill.
+        self.prefill_chunk = prefill_chunk
         self._stream_buffer = max(1, stream_buffer)
         # Steps per decode call: one host sync per chunk, not per token.
         self.decode_chunk = max(1, decode_chunk)
         self.model = LlamaModel.from_params(cfg, params, self.device)
         self._rng = torch.Generator(device=self.device).manual_seed(rng_seed)
-        K = self.decode_chunk
-        # Overshoot margin: a chunk of K steps may run up to K-1 tokens
-        # past a stream's max_new before the host sees it.
-        pool_tokens = kv_pool_tokens or max_batch * (max_len + K)
-        self._np_pages = -(-(max_len + K) // page_size)  # table width
-        self._num_pages = -(-pool_tokens // page_size) + 1  # + dummy
-        self._batch_prefill_width = min(8, max_batch)
+        K, B = self.decode_chunk, max_batch
         self._deferred: list = []  # pool-dry admissions, FIFO retry
-        self._init_paged_state()
+        if page_size:
+            # Overshoot margin: a chunk of K steps may run up to K-1 tokens
+            # past a stream's max_new before the host sees it.
+            pool_tokens = kv_pool_tokens or max_batch * (max_len + K)
+            self._np_pages = -(-(max_len + K) // page_size)  # table width
+            self._num_pages = -(-pool_tokens // page_size) + 1  # + dummy
+            self._batch_prefill_width = min(8, max_batch)
+            shape = (self._num_pages, cfg.n_kv_heads, page_size,
+                     cfg.head_dim)
+            self._pools = [
+                (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                 torch.zeros(shape, dtype=cfg.dtype, device=self.device))
+                for _ in range(cfg.n_layers)]
+            self._kv = None
+        else:
+            self._pools = None
+            self._kv = [(k, v) for k, v, _l in
+                        init_kv_caches(cfg, B, max_len, self.device)]
 
-        self._lens = np.zeros(max_batch, np.int32)
-        self._token = np.zeros(max_batch, np.int64)
-        self._pos = np.zeros(max_batch, np.int64)
-        self._temps = np.zeros(max_batch, np.float32)
-        self._topks = np.zeros(max_batch, np.int64)
-        self._topps = np.ones(max_batch, np.float32)
+        # Decode inputs: host arrays the loop edits, each a view of a CPU
+        # tensor (pinned on CUDA) copied every tick into a static device
+        # buffer that the decode graph reads.
+        self._staged: list = []
+        self._token, token = self._staging((B,), torch.int64)
+        self._pos, pos = self._staging((B,), torch.int64)
+        self._lens, lens = self._staging((B,), torch.int32)
+        self._temps, temps = self._staging((B,), torch.float32)
+        self._topks, topks = self._staging((B,), torch.int64)
+        self._topps, topps = self._staging((B,), torch.float32, 1.0)
+        self._decode_args = (token, pos, lens, temps, topks, topps)
+        if page_size:
+            self._tables, tables = self._staging((B, self._np_pages),
+                                                 torch.int32)
+            self._decode_args += (tables,)
+        self._reset_kv()
+        self._graph = None       # the captured decode chunk (CUDA)
+        self._graph_out = None   # its (K, B) output buffer
+        # Kernel launches recorded in the graph, by wrapper (each replay
+        # runs them again; the wrappers count only at capture), and the
+        # number of replays.
+        self.graph_launches: dict = {}
+        self.graph_replays = 0
+
         self._slots = [_Slot() for _ in range(max_batch)]
+        self._prefill_rr = 0  # round-robin cursor over prefilling slots
         self._pending: queue.Queue = queue.Queue()
         self._stop = threading.Event()
+        # Drain handshake: _quiesce asks the loop to pause at a tick
+        # boundary; the loop acks through _quiet, after which slot and KV
+        # state is stable for snapshot_active_streams().
+        self._quiesce = threading.Event()
+        self._quiet = threading.Event()
         self._ttft = deque(maxlen=256)  # seconds, submit -> first token
         self._parked_events = 0  # backpressure: offers rejected (q full)
         self.decode_steps = 0    # decode steps run (K per chunk)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="llm-engine")
         self._thread.start()
+
+    def _staging(self, shape, dtype, fill=0):
+        """A host array and the static device buffer it is copied into."""
+        host = torch.full(shape, fill, dtype=dtype,
+                          pin_memory=self.device.type == "cuda")
+        dev = torch.empty(shape, dtype=dtype, device=self.device)
+        self._staged.append((host, dev))
+        return host.numpy(), dev
+
+    def _reset_kv(self) -> None:
+        """Empty KV state: a fresh allocator, dummy page and tables (paged),
+        and every cache zeroed in place, since the decode graph holds their
+        addresses. Shared by __init__ and the decode-failure recovery."""
+        if self.page_size:
+            self._alloc = PageAllocator(self._num_pages, self.page_size)
+            # Dummy page: inactive slots' writes and table padding land
+            # here, never in a page a live sequence owns.
+            self._dummy_page = self._alloc.allocate("__dummy__", 1)[0]
+            self._tables[:] = self._dummy_page
+        for k, v in self._pools or self._kv:
+            k.zero_()
+            v.zero_()
 
     # ---- public API ------------------------------------------------------
 
@@ -182,22 +279,37 @@ class LLMEngine:
             raise ValueError(
                 f"prompt({len(prompt)}) + max_new_tokens({sp.max_new_tokens})"
                 f" exceeds engine max_len={self.max_len}")
-        need = self._alloc.pages_needed(
-            len(prompt) + sp.max_new_tokens + self.decode_chunk)
-        if need > self._alloc.num_pages - 1:  # -1: dummy page
-            raise ValueError(
-                f"request needs {need} KV pages but the pool holds "
-                f"{self._alloc.num_pages - 1}; raise kv_pool_tokens")
+        if self.page_size:
+            need = self._alloc.pages_needed(
+                len(prompt) + sp.max_new_tokens + self.decode_chunk)
+            if need > self._alloc.num_pages - 1:  # -1: dummy page
+                raise ValueError(
+                    f"request needs {need} KV pages but the pool holds "
+                    f"{self._alloc.num_pages - 1}; raise kv_pool_tokens")
         handle = RequestHandle(len(prompt), sp,
                                max_buffered=self._stream_buffer, tag=tag)
         self._pending.put((prompt, handle))
         return handle
 
-    def submit_prefilled(self, pack, sampling=None, tag: str = ""):
-        raise NotImplementedError(f"submit_prefilled {_NOT_PORTED}")
-
-    def snapshot_active_streams(self) -> dict:
-        raise NotImplementedError(f"snapshot_active_streams {_NOT_PORTED}")
+    def submit_prefilled(self, pack: _Prefilled,
+                         sampling: SamplingParams | None = None,
+                         tag: str = "") -> RequestHandle:
+        """Admit a request whose prefill ran elsewhere (a prefill pool, or
+        a drained stream being resumed): the KV prefix lands in a free
+        slot and decoding continues from `pack.token` without running
+        prefill here."""
+        sp = sampling or SamplingParams()
+        budget = sp.max_new_tokens - pack.generated
+        if budget <= 0:
+            raise ValueError("prefilled request has no decode budget left")
+        if pack.lens + budget > self.max_len:
+            raise ValueError(
+                f"kv_len({pack.lens}) + remaining({budget}) exceeds "
+                f"engine max_len={self.max_len}")
+        handle = RequestHandle(pack.prompt_len, sp,
+                               max_buffered=self._stream_buffer, tag=tag)
+        self._pending.put((pack, handle))
+        return handle
 
     def generate(self, prompt_tokens,
                  sampling: SamplingParams | None = None) -> list[int]:
@@ -231,6 +343,61 @@ class LLMEngine:
             "ttft_p99_ms": pick(0.99) * 1e3,
         }
 
+    def quiesce_for_drain(self, timeout: float = 10.0) -> bool:
+        """Pause the loop at a tick boundary so slot and KV state is stable
+        for snapshot_active_streams(). True once the loop acked."""
+        self._quiesce.set()
+        return self._quiet.wait(timeout)
+
+    def resume(self) -> None:
+        self._quiesce.clear()
+        self._quiet.clear()
+
+    def snapshot_active_streams(self) -> dict:
+        """Host-side snapshot of every decoding stream; quiesce first.
+        Keyed by the handle's tag (else `slot{i}`); each value holds the
+        per-layer KV trimmed to `lens` and the whole decode cursor, enough
+        to rebuild the stream through submit_prefilled in another engine.
+        The KV is (Hkv, lens, D) CPU tensors in the cache dtype, where
+        the reference gives numpy: numpy has no bfloat16 of its own."""
+        out: dict = {}
+        with torch.no_grad(), device_context(self.device):
+            for i, st in enumerate(self._slots):
+                h = st.request
+                if h is None or st.prefill_prompt is not None:
+                    continue
+                L = int(self._lens[i])
+                kv = []
+                if self.page_size:
+                    ps = self.page_size
+                    n = -(-L // ps)
+                    row = torch.as_tensor(self._tables[i, :n],
+                                          dtype=torch.long,
+                                          device=self.device)
+                    for kp, vp in self._pools:
+                        Hkv, D = kp.shape[1], kp.shape[3]
+                        kv.append(tuple(
+                            p[row].transpose(0, 1).reshape(Hkv, n * ps, D)
+                            [:, :L].to("cpu", copy=True) for p in (kp, vp)))
+                else:
+                    for kf, vf in self._kv:
+                        kv.append((kf[i, :, :L].to("cpu", copy=True),
+                                   vf[i, :, :L].to("cpu", copy=True)))
+                sp = h.sampling
+                out[h.tag or f"slot{i}"] = {
+                    "kv": kv,
+                    "prompt_len": int(h.prompt_len),
+                    "lens": L,
+                    "token": int(self._token[i]),
+                    "generated": int(st.generated),
+                    "history": list(st.history),
+                    "sampling": {"max_new_tokens": sp.max_new_tokens,
+                                 "temperature": sp.temperature,
+                                 "top_k": sp.top_k, "top_p": sp.top_p,
+                                 "eos_token": sp.eos_token},
+                }
+        return out
+
     def shutdown(self):
         self._stop.set()
         self._thread.join(5.0)
@@ -242,6 +409,7 @@ class LLMEngine:
             if st.request is not None:
                 st.request._finish(err)
                 st.request = None
+            st.prefill_prompt = None
             self._free_slot_pages(i)
         for _prompt, handle in self._deferred:
             handle._finish(err)
@@ -287,6 +455,17 @@ class LLMEngine:
         logits, new = self.model(tokens, positions, kv_caches=caches)
         return logits[0], [(k[0], v[0]) for k, v, _l in new]
 
+    def _prefill_chunk(self, tokens, start: int, slot: int):
+        """One chunk of a long prompt: tokens (1, C) at positions start..
+        start+C, their KV written in place at the same offset of slot
+        `slot`'s cache row. Returns the (C, V) logits."""
+        positions = start + torch.arange(tokens.shape[1],
+                                         device=self.device)[None]
+        caches = [(k[slot:slot + 1], v[slot:slot + 1], start)
+                  for k, v in self._kv]
+        logits, _ = self.model(tokens, positions, kv_caches=caches)
+        return logits[0]
+
     def _prefill_many(self, tokens, last_idx):
         """tokens: (W, bucket) right-padded; last_idx: (W,) index of each
         row's last prompt token. Returns each row's last-token logits
@@ -300,9 +479,9 @@ class LLMEngine:
         return last, [(k, v) for k, v, _l in new]
 
     def _write_prompt_pages(self, kv_one, page_ids):
-        """Scatter a prefill's (Hkv, max_len, D) caches into pool pages
-        (pool layout (P, Hkv, page, D)), in place. page_ids entries past
-        the prompt point at the dummy page."""
+        """Scatter a prefill's (Hkv, L, D) caches into pool pages (pool
+        layout (P, Hkv, page, D)), in place. page_ids (L / page,) entries
+        past the prompt point at the dummy page."""
         ps = self.page_size
         for (kp, vp), (k1, v1) in zip(self._pools, kv_one):
             Hkv, L, D = k1.shape
@@ -321,13 +500,19 @@ class LLMEngine:
             vp[flat] = v1.reshape(W, Hkv, L // ps, ps, D).transpose(1, 2) \
                 .reshape(-1, Hkv, ps, D)
 
-    def _decode_chunk_paged(self, token, pos, tables, lens, temps, top_ks,
-                            top_ps):
-        """K decode steps for every slot; sampling stays on the device and
-        the pools update in place. Returns the (K, B) tokens."""
+    def _decode_chunk(self, token, pos, lens, temps, top_ks, top_ps,
+                      tables=None):
+        """K decode steps for every slot, each writing its KV at its own
+        offset `lens`, in place: into the slot caches (dense), or through
+        its page table into the pools (paged, given `tables`). Sampling
+        stays on the device. Returns the (K, B) tokens."""
         toks = []
         for _ in range(self.decode_chunk):
-            caches = [PagedKVCache(k, v, tables, lens) for k, v in self._pools]
+            if tables is None:
+                caches = [(k, v, lens) for k, v in self._kv]
+            else:
+                caches = [PagedKVCache(k, v, tables, lens)
+                          for k, v in self._pools]
             logits, _ = self.model(token[:, None], pos[:, None],
                                    kv_caches=caches)
             token = self._sample(logits[:, 0], temps, top_ks, top_ps)
@@ -335,6 +520,46 @@ class LLMEngine:
             pos = pos + 1
             lens = lens + 1
         return torch.stack(toks)
+
+    def _run_decode_chunk(self) -> np.ndarray:
+        """One decode chunk from the host's slot state: (K, B) tokens. On
+        CUDA a replay of the captured graph (captured on first use); a
+        capture or replay that fails raises, there is no eager fallback."""
+        for host, dev in self._staged:
+            dev.copy_(host, non_blocking=True)
+        if self.device.type != "cuda":
+            return self._decode_chunk(*self._decode_args).numpy()
+        if self._graph is None:
+            self._capture_decode()
+        self._graph.replay()
+        self.graph_replays += 1
+        return self._graph_out.cpu().numpy()
+
+    def _capture_decode(self) -> None:
+        """Capture the decode chunk as one CUDA graph, on this engine's own
+        stream. An eager chunk on that stream first builds and loads the
+        kernels and fills the host-side caches the kernel wrapper queries
+        (device properties, resident clusters) and cuBLAS's workspace,
+        none of which may happen during capture. Its tokens are discarded;
+        its KV writes land at each slot's cursor, which the replay rewrites
+        before anything reads them."""
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._decode_chunk(*self._decode_args)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        # Each replay draws new noise from the engine's generator (an
+        # unregistered generator would repeat one draw every replay).
+        graph.register_generator_state(self._rng)
+        before = dict(launch_counts)
+        # thread_local: other engines' threads may use the card meanwhile.
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = self._decode_chunk(*self._decode_args)
+        self.graph_launches = {k: n - before[k]
+                               for k, n in launch_counts.items()}
+        self._graph, self._graph_out = graph, out
 
     # ---- admission -------------------------------------------------------
 
@@ -376,16 +601,120 @@ class LLMEngine:
         st = self._slots[slot]
         st.request = handle
         st.generated = 0
+        st.prefill_prompt = None
+        st.history = []
         self._ttft.append(time.monotonic() - handle._submit_ts)
         self._emit(slot, tok)
 
-    def _reserve_paged(self, slot: int, prompt: np.ndarray,
-                       handle: RequestHandle) -> str:
+    def _commit_prefilled(self, slot: int, handle: RequestHandle,
+                          pack: _Prefilled):
+        """Commit decode state for an externally prefilled stream. A fresh
+        handoff (emit_first) emits the prefill's sampled first token as
+        _commit_token does; a resume carries its history and cursor and
+        emits nothing until decode advances."""
+        sp = handle.sampling
+        self._lens[slot] = pack.lens
+        self._pos[slot] = pack.lens
+        self._token[slot] = pack.token
+        self._temps[slot] = sp.temperature
+        self._topks[slot] = sp.top_k
+        self._topps[slot] = sp.top_p
+        st = self._slots[slot]
+        st.request = handle
+        st.generated = pack.generated
+        st.prefill_prompt = None
+        st.history = list(pack.history)
+        if pack.emit_first:
+            self._ttft.append(time.monotonic() - handle._submit_ts)
+            self._emit(slot, pack.token)
+
+    def _kv_prefix(self, a, length: int) -> torch.Tensor:
+        """A snapshot's (Hkv, >= length, D) layer cache (numpy or CPU
+        tensor) as the first `length` rows on the device, in the cache
+        dtype."""
+        if not torch.is_tensor(a):
+            a = torch.from_numpy(np.array(a[:, :length]))  # writable copy
+        return a[:, :length].to(self.device, self.cfg.dtype)
+
+    def _admit(self, prompt, handle: RequestHandle) -> None:
+        """Dense-mode admission into the first free slot."""
+        slot = next(i for i, s in enumerate(self._slots) if s.request is None)
+        if isinstance(prompt, _Prefilled):
+            self._admit_prefilled_dense(slot, prompt, handle)
+            return
+        # Chunked only when the chunk grid fits the cache: the last chunk's
+        # write window [start, start + C) must not run past max_len.
+        # Otherwise the bucketed whole-prompt path (whose window is the
+        # bucket) takes it.
+        C = self.prefill_chunk
+        grid_fits = C and -(-len(prompt) // C) * C <= self.max_len
+        if C and len(prompt) > C and grid_fits:
+            # Bookkeeping only: the loop advances one chunk a tick. The
+            # slot's decode offset points at the cache's last index, so the
+            # shared decode chunk's writes for this still-prefilling slot
+            # land where nothing is read before it is written again.
+            st = self._slots[slot]
+            st.request = handle
+            st.generated = 0
+            st.prefill_prompt = prompt
+            st.prefill_pos = 0
+            st.history = []
+            self._lens[slot] = self.max_len - 1
+            self._temps[slot] = handle.sampling.temperature
+            self._topks[slot] = handle.sampling.top_k
+            self._topps[slot] = handle.sampling.top_p
+            return
+        padded = np.zeros((1, self._bucket(len(prompt))), np.int64)
+        padded[0, : len(prompt)] = prompt
+        with record_function("llm.prefill_one"):
+            logits, kv_one = self._prefill_one(self._to_device(padded))
+            # The slot row of every layer, written in place.
+            for (kf, vf), (k1, v1) in zip(self._kv, kv_one):
+                kf[slot].copy_(k1)
+                vf[slot].copy_(v1)
+            self._commit_first_token(slot, handle, logits[len(prompt) - 1],
+                                     len(prompt))
+
+    def _admit_prefilled_dense(self, slot: int, pack: _Prefilled,
+                               handle: RequestHandle):
+        """Land an external KV prefix in a dense slot row. Entries past
+        `pack.lens` keep what they hold: decode masks keys by position and
+        overwrites index lens before attending."""
+        L = pack.lens
+        for (kf, vf), (k1, v1) in zip(self._kv, pack.kv_layers):
+            kf[slot, :, :L] = self._kv_prefix(k1, L)
+            vf[slot, :, :L] = self._kv_prefix(v1, L)
+        self._commit_prefilled(slot, handle, pack)
+
+    def _admit_prefilled_paged(self, slot: int, seq_id: str,
+                               pack: _Prefilled, handle: RequestHandle):
+        """Scatter an external KV prefix into the sequence's reserved
+        pages. The prefix is padded to the engine's bucket (a page
+        multiple); pad pages go to the dummy page, never to a page a live
+        sequence owns."""
+        ps, L = self.page_size, pack.lens
+        Lb = -(-max(self._bucket(L), ps) // ps) * ps
+        n_real = -(-L // ps)
+        row = self._alloc.table(seq_id, self._np_pages).numpy()
+        page_ids = np.full(Lb // ps, self._dummy_page, np.int64)
+        page_ids[:n_real] = row[:n_real]
+        kv = [tuple(F.pad(self._kv_prefix(a, L), (0, 0, 0, Lb - L))
+                    for a in layer) for layer in pack.kv_layers]
+        self._write_prompt_pages(kv, self._to_device(page_ids))
+        self._tables[slot] = row
+        self._commit_prefilled(slot, handle, pack)
+
+    def _reserve_paged(self, slot: int, prompt, handle: RequestHandle) -> str:
         """Reserve pages for the stream's whole lifetime (prompt + max_new
         + chunk overshoot) up front, so decode never fails mid-stream on
         an empty pool; MemoryError defers the request instead."""
+        sp = handle.sampling
         seq_id = f"slot{slot}-{id(handle):x}"
-        need = len(prompt) + handle.sampling.max_new_tokens + self.decode_chunk
+        if isinstance(prompt, _Prefilled):
+            need = prompt.lens + (sp.max_new_tokens - prompt.generated) \
+                + self.decode_chunk
+        else:
+            need = len(prompt) + sp.max_new_tokens + self.decode_chunk
         self._alloc.allocate(seq_id, need)  # MemoryError -> caller defers
         self._slots[slot].seq_id = seq_id
         return seq_id
@@ -393,10 +722,20 @@ class LLMEngine:
     def _admit_paged_group(self, cands: list) -> None:
         """Prefill reserved candidates, batching same-bucket requests
         through _prefill_many (one call for up to W streams); singleton
-        groups take _prefill_one. cands: (slot, seq_id, prompt, handle)
-        with pages already reserved."""
+        groups take _prefill_one, and externally prefilled streams only
+        scatter their KV. cands: (slot, seq_id, prompt or _Prefilled,
+        handle) with pages already reserved."""
+        for slot, seq_id, pack, handle in \
+                [c for c in cands if isinstance(c[2], _Prefilled)]:
+            try:
+                self._admit_prefilled_paged(slot, seq_id, pack, handle)
+            except Exception as e:  # the request fails, not the loop
+                self._free_slot_pages(slot)
+                handle._finish(e)
         groups: dict = {}
         for c in cands:
+            if isinstance(c[2], _Prefilled):
+                continue
             bucket = max(self._bucket(len(c[2])), self.page_size)
             groups.setdefault(bucket, []).append(c)
         for bucket, group in groups.items():
@@ -451,23 +790,6 @@ class LLMEngine:
                     self._commit_token(slot, handle, int(toks[r]),
                                        len(prompt))
 
-    def _init_paged_state(self):
-        """(Re)build the page pool: allocator + dummy page + zeroed
-        per-layer pools + tables. Shared by __init__ and the
-        decode-failure recovery path."""
-        self._alloc = PageAllocator(self._num_pages, self.page_size)
-        # Dummy page: inactive slots' writes and table padding land here,
-        # never in a page a live sequence owns.
-        self._dummy_page = self._alloc.allocate("__dummy__", 1)[0]
-        shape = (self._num_pages, self.cfg.n_kv_heads, self.page_size,
-                 self.cfg.head_dim)
-        self._pools = [
-            (torch.zeros(shape, dtype=self.cfg.dtype, device=self.device),
-             torch.zeros(shape, dtype=self.cfg.dtype, device=self.device))
-            for _ in range(self.cfg.n_layers)]
-        self._tables = np.full((self.max_batch, self._np_pages),
-                               self._dummy_page, np.int32)
-
     def _prefill_into_pages(self, slot: int, seq_id: str,
                             prompt: np.ndarray):
         """Bucketed prefill of one prompt, scattered into its pages;
@@ -492,6 +814,24 @@ class LLMEngine:
             self._tables[slot, :] = self._dummy_page
             st.seq_id = ""
 
+    def _advance_prefill(self, slot: int):
+        """Write one chunk of a long prompt into the slot's cache row; on
+        the last chunk, sample the first token and switch to decoding."""
+        st = self._slots[slot]
+        prompt, C, start = st.prefill_prompt, self.prefill_chunk, \
+            st.prefill_pos
+        n = min(C, len(prompt) - start)
+        chunk = np.zeros((1, C), np.int64)
+        chunk[0, :n] = prompt[start: start + n]
+        with record_function("llm.prefill_chunk"):
+            logits = self._prefill_chunk(self._to_device(chunk), start, slot)
+        st.prefill_pos = start + n
+        if st.prefill_pos < len(prompt):
+            return
+        # Prompt complete: the first token from the last real position.
+        self._commit_first_token(slot, st.request, logits[n - 1],
+                                 len(prompt))
+
     def _emit(self, slot: int, tok: int) -> bool:
         """Offer one token to the stream. False = the consumer's bounded
         queue is full: the caller must not commit the token (the slot
@@ -501,6 +841,7 @@ class LLMEngine:
             self._parked_events += 1
             return False
         st.generated += 1
+        st.history.append(tok)
         sp = st.request.sampling
         if (sp.eos_token is not None and tok == sp.eos_token) or \
                 st.generated >= sp.max_new_tokens:
@@ -519,9 +860,10 @@ class LLMEngine:
                 self._tick()
 
     def _admit_pending(self) -> None:
-        """Admit as many pending requests as there are free slots, gated
-        on pool pages (a dry pool defers the request, FIFO), and prefill
-        the admissions of one pass together."""
+        """Admit as many pending requests as there are free slots. Dense
+        mode prefills each at once; paged mode gates on pool pages (a dry
+        pool defers the request, FIFO) and prefills the admissions of one
+        pass together."""
         cands: list = []
         picked: set = set()
         while any(i not in picked and s.request is None
@@ -536,6 +878,12 @@ class LLMEngine:
                         timeout=0.05)
                 except queue.Empty:
                     break
+            if not self.page_size:
+                try:
+                    self._admit(prompt, handle)
+                except Exception as e:  # the request fails, not the loop
+                    handle._finish(e)
+                continue
             slot = next(i for i, s in enumerate(self._slots)
                         if s.request is None and i not in picked)
             try:
@@ -554,8 +902,31 @@ class LLMEngine:
             self._admit_paged_group(cands)
 
     def _tick(self) -> None:
+        # Drain: ack and idle at a tick boundary, where every token of the
+        # last chunk is committed, so slot and KV state is a consistent
+        # snapshot.
+        if self._quiesce.is_set():
+            self._quiet.set()
+            self._stop.wait(0.01)
+            return
         self._admit_pending()
-        decoding = [s for s in self._slots if s.request is not None]
+        # One chunk of one prefilling slot a tick, round-robin: long
+        # prompts interleave with decoding instead of stalling it.
+        prefilling = [i for i, s in enumerate(self._slots)
+                      if s.request is not None and s.prefill_prompt is not None]
+        if prefilling:
+            idx = prefilling[self._prefill_rr % len(prefilling)]
+            self._prefill_rr += 1
+            try:
+                self._advance_prefill(idx)
+            except Exception as e:  # the request fails, not the loop
+                st = self._slots[idx]
+                if st.request is not None:
+                    st.request._finish(e)
+                    st.request = None
+                    st.prefill_prompt = None
+        decoding = [s for s in self._slots
+                    if s.request is not None and s.prefill_prompt is None]
         if not decoding:
             return
         # Backpressure: if every consumer's queue is full, a decode chunk
@@ -563,24 +934,20 @@ class LLMEngine:
         if all(s.request.backlog_full() for s in decoding):
             self._stop.wait(0.002)
             return
-        # One decode chunk for every slot (inactive slots compute garbage
-        # on their stale state, into the dummy page; discarded here).
+        # One decode chunk for every slot (inactive and prefilling slots
+        # compute garbage on their stale state, discarded here).
         try:
             with record_function("llm.decode_chunk"):
-                toks = self._decode_chunk_paged(
-                    self._to_device(self._token), self._to_device(self._pos),
-                    self._to_device(self._tables), self._to_device(self._lens),
-                    self._to_device(self._temps), self._to_device(self._topks),
-                    self._to_device(self._topps)).cpu().numpy()  # (K, B)
+                toks = self._run_decode_chunk()  # (K, B)
         except Exception as e:
             # A decode failure must not strand waiters on a dead thread:
             # fail them all and keep serving on fresh state.
             self._fail_all(e)
-            self._init_paged_state()
+            self._reset_kv()
             return
         self.decode_steps += toks.shape[0]
         for i, st in enumerate(self._slots):
-            if st.request is None:
+            if st.request is None or st.prefill_prompt is not None:
                 continue
             for kstep in range(toks.shape[0]):
                 tok = int(toks[kstep, i])

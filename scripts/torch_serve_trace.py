@@ -1,10 +1,13 @@
 """Where the time of the port's paged serving goes, on one NVIDIA GPU.
 
 Runs the serving phase of chip_smoke.py (LLAMA3_8B bf16 behind the paged
-LLMEngine; 8 greedy prompts of 17-200 tokens and one sampled request, 32
-new tokens each) with torch.profiler over its timed window (which prints
-the phase's own line, its times lengthened by the tracing), and prints
-one JSON line:
+LLMEngine, its decode chunk a replayed CUDA graph; 8 greedy prompts of
+17-200 tokens and one sampled request, 32 new tokens each) with
+torch.profiler over its timed window (which prints the phase's own line,
+its times lengthened by the tracing), and prints one JSON line (the
+kernels of a graph replay are device events like any other; an
+`llm.decode_chunk` span's host time is the staging copies, the replay's
+launch and the wait for its tokens):
 
 - window_ms: the traced window (first to last event);
 - device_busy_ms / idle_share: the union of kernel intervals, and the
