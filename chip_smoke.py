@@ -68,7 +68,9 @@ Phases, in order; a failure in any of them ends the run with an error:
              at the MoE's shape (H 32, contiguous, as its GQA repeat and
              RoPE leave q, k and v); the library
              yardstick is F.scaled_dot_product_attention (forward, and
-             forward plus backward), not used by the port.
+             forward plus backward), not used by the port; and at
+             DiT-XL/2's attention (B 32, H 16, S 256, D 72, non-causal,
+             q, k and v views of one qkv projection).
 6. train parity - the training cell's widths at 2 layers, from
              init_params(seed=0), AdamW steps of make_train_step on one
              batch with attention="reference" (plain autograd) and with
@@ -119,11 +121,34 @@ Phases, in order; a failure in any of them ends the run with an error:
              n_layers and K1-bwd n_layers times a step; ms per step,
              tokens/s, MFU (6N of the active parameters) and peak memory.
 
+11. model families - models/dit.py, vit.py, encoder.py and ssm.py. DiT
+             (the repo's DiTConfig(), B 8, perturbed weights so every
+             path has a gradient): flash attention against the
+             reference's, forward and the grads of ddpm_loss at fixed
+             draws, f32 at 2e-5 / 1e-4, bf16 by bf16_err (outputs) and
+             bf16_parity's 2^-8 (loss) and 2^-5 (grads, relative norm);
+             DiT-XL/2 (672M parameters) in bf16, B 32, AdamW(1e-4): one
+             warm-up step and 5 timed steps at fixed draws, the loss
+             falling, K1 and K1-bwd each 28 launches a step; ddim_sample
+             on DiTConfig(), 16 images, 50 steps, guidance 4.0, twice
+             from one seed bitwise equal, 600 K1 launches. ViT-B/16 in
+             bf16 at B 32 (forward, 3 steps; 197 tokens: no kernel, as
+             the reference), BERT-base (B 8, S 512, 15% masked) and
+             T5-base (source 512, target 128, B 8), 3 steps each, losses
+             falling; Mamba-130M's widths at 2 layers in f32: prefill of
+             2048 tokens and 64 decode steps within 2e-5 of the parallel
+             forward, then 3 steps at full depth in bf16, B 2, S 2048,
+             under 60 GiB; ViT-B/16's sharded step by TRANSFORMER_RULES
+             on an NCCL world of one, bitwise the single-device step.
+
 Prints the kernels as one JSON line (a paged kernel's `launches` from
 the serving phase, graph replays included; a flash kernel's from the
 training phase, `sharded_launches` from the sharded one,
-`moe_launches` from the MoE training phase and `moe_sharded_launches`
-from phase 9's sharded steps), the card's name and power limit, and
+`moe_launches` from the MoE training phase, `moe_sharded_launches`
+from phase 9's sharded steps, `dit_launches` from DiT-XL/2's timed
+steps and `dit_sample_launches` from the sampler's run; its `dit_shape`
+the times at DiT-XL/2's attention, B 32, H 16, S 256, D 72, non-causal),
+the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 """
@@ -149,11 +174,17 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ray_tpu_torch import _build
-from ray_tpu_torch.models import (LLAMA3_8B, MIXTRAL_8X7B, MOE_RULES,
-                                  Generator, LlamaConfig, SamplingParams,
+from ray_tpu_torch.models import (BERT_BASE, LLAMA3_8B, MAMBA_130M,
+                                  MIXTRAL_8X7B, MOE_RULES, T5_BASE, VIT_B16,
+                                  DiT, DiTConfig, Generator, LlamaConfig,
+                                  SamplingParams, count_dit_params,
                                   count_flops_per_token, cross_entropy_loss,
-                                  init_kv_caches, init_params, moe_aux_loss)
-from ray_tpu_torch.models import moe
+                                  init_kv_caches, init_params, mlm_loss,
+                                  moe_aux_loss, seq2seq_loss, ssm_decode_step,
+                                  ssm_prefill, vit_loss)
+from ray_tpu_torch.models.convert import model_class
+from ray_tpu_torch.models.vit import ViTConfig
+from ray_tpu_torch.models import dit, moe
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.parallel import (TRANSFORMER_RULES, MeshConfig, P,
@@ -192,6 +223,18 @@ SHARDED_STEPS = 3
 # weights, grads and two AdamW moments take about 45 GiB of the card.
 MOE_TRAIN_CFG = dataclasses.replace(MIXTRAL_8X7B, n_layers=4)
 MOE_TRAIN_STEPS = 5
+# DiT-XL/2's published widths (Peebles & Xie 2023, Table 1: 28 layers,
+# width 1152, 16 heads, patch 2) on the 32 x 32 x 4 latents of a 256 x 256
+# image, 1000 classes: 672M parameters (count_dit_params), bf16, B 32.
+DIT_XL2 = DiTConfig(image_size=32, channels=4, patch_size=2, d_model=1152,
+                    n_layers=28, n_heads=16, num_classes=1000)
+DIT_B, DIT_STEPS = 32, 5
+SAMPLE_STEPS, SAMPLE_NUM, GUIDANCE = 50, 16, 4.0
+VIT_B, ENC_B, BERT_S, T5_SRC, T5_TGT = 32, 8, 512, 512, 128
+# Mamba-130M trains at full depth on B x S tokens; its scan keeps two
+# (B, S, 1536, 16) f32 tensors a layer for the backward, about 13 GiB of
+# the 24 layers at B 2, S 2048.
+MAMBA_B, MAMBA_S, FAMILY_STEPS = 2, 2048, 3
 # NVIDIA data sheets, dense: (memory B/s, f32 FLOP/s, bf16 FLOP/s).
 PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
          "SXM": (3.35e12, 67e12, 989e12)}
@@ -770,12 +813,17 @@ def flash_bound_ms(B, H, Sq, Sk, D, causal, dtype, card, backward):
 
 
 def flash_inputs(dtype, B, H, Sq, Sk, D, seed=0, views=True):
-    """q, k, v, dO; with `views`, q, k and v as the model hands them over,
-    (B, S, H, D) tensors seen as (B, H, S, D), else contiguous."""
+    """q, k, v, dO; with `views`, q, k and v as the Llama hands them over,
+    (B, S, H, D) tensors seen as (B, H, S, D); with views="qkv" as DiT
+    does, the three head groups of one (B, S, 3H, D) projection seen as
+    (B, 3H, S, D); else contiguous."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(B, H, s, D, generator=g, device="cuda")
                    .to(dtype) for s in (Sq, Sk, Sk, Sq))
-    if views:
+    if views == "qkv":
+        q, k, v = torch.cat([q, k, v], dim=1).transpose(1, 2).contiguous() \
+            .transpose(1, 2).chunk(3, dim=1)
+    elif views:
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                    for t in (q, k, v))
     return q, k, v, do
@@ -844,20 +892,27 @@ def flash_kernel_phase(card: str) -> dict:
     # (like RoPE's on q and k) leaves q, k and v contiguous.
     moe_rows = flash_shape_rows(card, timer, B, MIXTRAL_8X7B.n_heads, S,
                                 MIXTRAL_8X7B.head_dim, views=False)
+    # DiT-XL/2's: non-causal, D 72 (the wgmma kernels pad it to 128), q,
+    # k and v the model's views of one qkv projection.
+    dit_rows = flash_shape_rows(card, timer, DIT_B, DIT_XL2.n_heads,
+                                DIT_XL2.num_patches, DIT_XL2.head_dim,
+                                views="qkv", causal=False)
     for name, row in rows.items():
         row["moe_shape"] = {k: moe_rows[name][k] for k in TIMED}
+        row["dit_shape"] = {k: dit_rows[name][k] for k in TIMED}
     return rows
 
 
-def flash_shape_rows(card: str, timer, B, H, S, D, views: bool) -> dict:
-    """The flash kernels at (B, H, S, D), causal, bf16: checked against
-    their plain versions, two backward calls bitwise equal, then timed
-    beside their plain versions and SDPA; their kernels-line rows."""
+def flash_shape_rows(card: str, timer, B, H, S, D, views,
+                     causal: bool = True) -> dict:
+    """The flash kernels at (B, H, S, D), bf16: checked against their
+    plain versions, two backward calls bitwise equal, then timed beside
+    their plain versions and SDPA; their kernels-line rows."""
     dtype, scale = torch.bfloat16, 1 / math.sqrt(D)
-    (q, k, v, do), res, err, grad_err = flash_case(dtype, B, H, S, S, D, True,
-                                                   views=views)
-    first, again = (fa._flash_backward(scale, True, 512, 512, None, res, do)
-                    for _ in range(2))
+    (q, k, v, do), res, err, grad_err = flash_case(dtype, B, H, S, S, D,
+                                                   causal, views=views)
+    first, again = (fa._flash_backward(scale, causal, 512, 512, None, res,
+                                       do) for _ in range(2))
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
         raise AssertionError("two backward calls gave different grads")
     log(f"flash backward H={H}: two calls give bitwise equal dq, dk, dv")
@@ -865,29 +920,34 @@ def flash_shape_rows(card: str, timer, B, H, S, D, views: bool) -> dict:
 
     def library_fwd_bwd():
         qg.grad = kg.grad = vg.grad = None
-        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(do)
+        F.scaled_dot_product_attention(qg, kg, vg,
+                                       is_causal=causal).backward(do)
 
     cases = {
         "flash_attention_forward": (
-            err, lambda: fa._flash_forward(q, k, v, scale, True, 512, 512),
-            lambda: fa.flash_forward_reference(q, k, v, scale, True, 512, 512),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            err, lambda: fa._flash_forward(q, k, v, scale, causal, 512, 512),
+            lambda: fa.flash_forward_reference(q, k, v, scale, causal, 512,
+                                               512),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
             False),
         "flash_attention_backward": (
             grad_err,
-            lambda: fa._flash_backward(scale, True, 512, 512, None, res, do),
-            lambda: fa.flash_backward_reference(scale, True, 512, 512, None,
+            lambda: fa._flash_backward(scale, causal, 512, 512, None, res,
+                                       do),
+            lambda: fa.flash_backward_reference(scale, causal, 512, 512, None,
                                                 res, do),
             library_fwd_bwd, True),
     }
     rows = {}
     for name, (err, kernel, plain, library, backward) in cases.items():
-        bound, by = flash_bound_ms(B, H, S, S, D, True, dtype, card, backward)
+        bound, by = flash_bound_ms(B, H, S, S, D, causal, dtype, card,
+                                   backward)
         rows[name] = {"name": name, "route": "cuda", "source": FLASH_SOURCE,
                       "replaces": FLASH_KERNELS[name], "max_abs_err": err,
                       "bound_ms": bound, "bound_by": by,
                       **timer.row(kernel, plain, library, plain_reps=5)}
-        log(f"kernel {name} B={B} H={H} S={S} D={D} causal bf16: "
+        log(f"kernel {name} B={B} H={H} S={S} D={D} "
+            f"{'causal' if causal else 'non-causal'} bf16 views={views}: "
             + json.dumps({k: rows[name][k] for k in TIMED}))
     return rows
 
@@ -907,10 +967,14 @@ def train_batch(cfg, seed: int = 0):
 
 def flash_launches(cfg, n_steps: int) -> dict:
     """The flash kernels' launches in n_steps training steps of cfg: each
-    once per layer and step, the forward twice under remat."""
-    flash = cfg.attention == "flash"
+    once per layer and step, the forward twice under remat; none for a
+    ViT whose sequence is no multiple of 128 (its reference's rule), nor
+    for the encoders and the SSM (no kernel, as in the reference)."""
+    flash = getattr(cfg, "attention", None) == "flash" and not (
+        isinstance(cfg, ViTConfig) and (cfg.num_patches + 1) % 128)
+    remat = getattr(cfg, "remat", False)
     return {"flash_attention_forward":
-            flash * cfg.n_layers * n_steps * (2 if cfg.remat else 1),
+            flash * cfg.n_layers * n_steps * (2 if remat else 1),
             "flash_attention_backward": flash * cfg.n_layers * n_steps}
 
 
@@ -1096,7 +1160,8 @@ def training_phase(card: str, window=None, steps: int = TRAIN_STEPS,
 
 def timed_steps(step, state, batch, n_steps: int):
     """n_steps steps; returns (state, losses, ms per step of all but the
-    first, peak memory in GiB). The losses are read once, at the end."""
+    first (of the one, for one step), peak memory in GiB). The losses
+    are read once, at the end."""
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     for i in range(n_steps):
@@ -1107,7 +1172,7 @@ def timed_steps(step, state, batch, n_steps: int):
         times.append(time.perf_counter() - t0)
         losses.append(metrics["loss"])
     return (state, torch.stack(losses).tolist(),
-            statistics.mean(times[1:]) * 1e3,
+            statistics.mean(times[1:] or times) * 1e3,
             torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -1121,15 +1186,18 @@ def ulps(a, b) -> int:
 
 def sharded_train_check(card: str, mesh, cfg=TRAIN_CFG,
                         rules=TRANSFORMER_RULES, loss_fn=None,
-                        what: str = "sharded training") -> dict:
+                        what: str = "sharded training", batch=None,
+                        steps: int = SHARDED_STEPS) -> dict:
     """The single-device step and the sharded step on a world of one, in
-    turn, from the same params and batch (the training config, rules and
-    loss unless given); returns the sharded path's launch counts."""
-    batch = train_batch(cfg)
+    turn, from the same params and batch (the training config, its token
+    batch, rules and loss unless given; each batch tensor sharded over
+    dp and fsdp in its first dim); returns the sharded path's launch
+    counts."""
+    batch = train_batch(cfg) if batch is None else batch
     step = make_train_step(loss_fn or llama_loss)
     state = init_train_state(cfg, adamw(3e-4, weight_decay=0.01), seed=0)
     state, want_losses, plain_ms, plain_gib = timed_steps(
-        step, state, batch, SHARDED_STEPS)
+        step, state, batch, steps)
     want = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
     del state
     gc.collect()
@@ -1138,20 +1206,19 @@ def sharded_train_check(card: str, mesh, cfg=TRAIN_CFG,
     state, specs = init_sharded_state(
         mesh, cfg, init_params, rules, adamw(3e-4, weight_decay=0.01), cfg,
         0)
-    batch_axes = P(("dp", "fsdp"), None)
-    sharded = shard_train_step(step, mesh, specs, (batch_axes, batch_axes))
+    sharded = shard_train_step(step, mesh, specs, tuple(
+        P(("dp", "fsdp"), *[None] * (t.dim() - 1)) for t in batch))
     fa.reset_launch_counts()
-    state, losses, ms, gib = timed_steps(sharded, state, batch,
-                                         SHARDED_STEPS)
+    state, losses, ms, gib = timed_steps(sharded, state, batch, steps)
     counts = dict(fa.launch_counts)
     got = {n: p.detach().full_tensor().cpu()
            for n, p in state.model.named_parameters()}
     unequal = {n: ulps(got[n], t) for n, t in want.items()
                if not torch.equal(got[n], t)}
     log(f"{what}: " + json.dumps({
-        "card": card, "batch": TRAIN_B, "seq": TRAIN_S,
-        "steps": SHARDED_STEPS, "mesh": str(state.model.embed.weight
-                                            .device_mesh),
+        "card": card, "batch": [list(t.shape) for t in batch],
+        "steps": steps, "mesh": str(next(state.model.parameters())
+                                    .device_mesh),
         "losses": losses, "single_device_losses": want_losses,
         "ms_per_step": ms, "single_device_ms_per_step": plain_ms,
         "peak_gib": gib, "single_device_peak_gib": plain_gib,
@@ -1159,9 +1226,10 @@ def sharded_train_check(card: str, mesh, cfg=TRAIN_CFG,
     if losses != want_losses or unequal:
         raise AssertionError(f"{what}: the sharded step is not bitwise the "
                              "single-device step")
-    if counts != flash_launches(cfg, SHARDED_STEPS):
+    want_counts = flash_launches(cfg, steps)
+    if counts != want_counts:
         raise AssertionError(f"{what}: sharded flash launches {counts}, "
-                             f"expected {flash_launches(cfg, SHARDED_STEPS)}")
+                             f"expected {want_counts}")
     return counts
 
 
@@ -1292,6 +1360,315 @@ def moe_parity_phase(card: str) -> dict:
                                    "moe sharded training")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the other model families
+# ---------------------------------------------------------------------------
+
+
+def perturbed(params: dict, seed: int, scale: float = 0.02) -> dict:
+    """params plus scale x a unit normal each, in their dtypes: adaLN-Zero
+    starts DiT at an exact 0 prediction, where no gradient reaches its
+    attention; these weights give every path signal."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {n: (t.float() + scale * torch.randn(
+        t.shape, generator=g, device="cuda")).to(t.dtype)
+        for n, t in params.items()}
+
+
+def dit_batch(cfg, B: int, seed: int):
+    """(images, labels, t, noise, drop): the images and the draws of
+    ddpm_loss, from torch.Generator(seed) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, cfg.image_size, cfg.image_size, cfg.channels)
+    return (torch.randn(shape, generator=g, device="cuda"),
+            torch.randint(0, cfg.num_classes, (B,), generator=g,
+                          device="cuda"),
+            torch.randint(0, cfg.timesteps, (B,), generator=g, device="cuda"),
+            torch.randn(shape, generator=g, device="cuda"),
+            torch.rand(B, generator=g, device="cuda") < 0.1)
+
+
+def dit_loss(model, batch):
+    """ddpm_loss at fixed draws: the same objective every step."""
+    return dit._ddpm_loss(model, *batch)
+
+
+def dit_parity(cfg, params, batch) -> dict:
+    """DiT with flash attention against the reference attention, on the
+    same weights and draws: (outputs, losses, grads) of each, and the
+    flash kernels' launches in the flash model's forward and backward."""
+    out = {}
+    for attention in ("reference", "flash"):
+        model = DiT.from_params(dataclasses.replace(cfg, attention=attention),
+                                {n: t.clone() for n, t in params.items()},
+                                torch.device("cuda"), trainable=True)
+        images, labels, t = batch[:3]
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            pred = model(images, t.float(), labels)
+        loss = dit_loss(model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[attention] = (pred, loss.detach(), {
+            n: p.grad.float() for n, p in model.named_parameters()},
+            dict(fa.launch_counts))
+    return out
+
+
+def dit_parity_phase() -> None:
+    """The repo's DiTConfig(), B 8, from perturbed init_params(seed=0): the
+    flash model against the reference attention's, forward and the grads
+    of ddpm_loss at fixed draws; f32 at 2e-5 (outputs) and 1e-4 (grads),
+    then bf16: outputs by bf16_err, the loss within 2^-8 and each grad
+    within 2^-5 of its norm, as bf16_parity holds the Llama. Each flash
+    kernel launches n_layers times a forward and a backward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = DiTConfig(dtype=dtype)
+        params = perturbed(init_params(cfg, seed=0), seed=1)
+        res = dit_parity(cfg, params, dit_batch(cfg, 8, seed=2))
+        (want, want_loss, want_g, _), (got, loss, grads, counts) = \
+            res["reference"], res["flash"]
+        n = cfg.n_layers
+        if counts != {"flash_attention_forward": 2 * n,
+                      "flash_attention_backward": n}:
+            raise AssertionError(f"DiT flash launches {counts}: expected "
+                                 f"{n} a forward (two forwards) and {n} a "
+                                 "backward")
+        rel = {p: ((g - want_g[p]).norm() / want_g[p].norm().clamp(
+            min=1e-30)).item() for p, g in grads.items()}
+        worst = max(rel, key=rel.get)
+        if dtype == torch.float32:
+            out_err = max_err(got, want, FLASH_F32_TOL[0])
+            grad_err = max(max_err(g, want_g[p], FLASH_F32_TOL[1])
+                           for p, g in grads.items())
+            margin = None
+        else:
+            out_err, margin = bf16_err(got, want)
+            grad_err = max((g - want_g[p]).abs().max().item()
+                           for p, g in grads.items())
+            if abs(loss - want_loss) > 2 ** -8 * abs(want_loss) \
+                    or rel[worst] > 2 ** -5:
+                raise AssertionError(f"bf16 DiT: loss {loss.item()} against "
+                                     f"{want_loss.item()}, grad of {worst} "
+                                     f"off by {rel[worst]:.3g} of its norm")
+        log(f"dit parity {str(dtype)[6:]}: " + json.dumps({
+            "loss": loss.item(), "reference_loss": want_loss.item(),
+            "out_max_abs_err": out_err, "out_margin": margin,
+            "grad_max_abs_err": grad_err, "max_grad_rel": rel[worst],
+            "max_grad_rel_param": worst, "launches": counts}))
+
+
+def dit_training(card: str, window=None, steps: int = DIT_STEPS) -> dict:
+    """DiT-XL/2 in bf16 with flash attention, B 32, AdamW(1e-4, no weight
+    decay, as the DiT paper trains): one warm-up step, then `steps` timed
+    steps of ddpm_loss at fixed draws (so the loss must fall), read back
+    once; `window` (such as a torch.profiler.profile) wraps the timed
+    steps. Returns the flash launch counts of the timed steps: each
+    kernel n_layers times a step."""
+    cfg = DIT_XL2
+    state = init_train_state(cfg, adamw(1e-4, weight_decay=0.0), seed=0)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    if n_params != count_dit_params(cfg):
+        raise AssertionError(f"{n_params} parameters, count_dit_params "
+                             f"says {count_dit_params(cfg)}")
+    batch = dit_batch(cfg, DIT_B, seed=0)
+    step = make_train_step(dit_loss)
+    state, metrics = step(state, batch)     # warm-up
+    first = metrics["loss"].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    with window or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        out = []
+        for _ in range(steps):
+            state, metrics = step(state, batch)
+            out.append(metrics["loss"])
+        losses = torch.stack(out).tolist()  # the one host read
+        dt = time.perf_counter() - t0
+    counts = dict(fa.launch_counts)
+    if not all(math.isfinite(x) for x in [first] + losses) \
+            or not losses[-1] < first:
+        raise AssertionError(f"DiT loss did not fall: {first} then {losses}")
+    if counts != flash_launches(cfg, steps):
+        raise AssertionError(f"DiT flash launches {counts}, expected "
+                             f"{flash_launches(cfg, steps)}")
+    tokens = DIT_B * cfg.num_patches
+    log("dit training: " + json.dumps({
+        "card": card, "params": n_params, "batch": DIT_B,
+        "tokens_per_image": cfg.num_patches, "steps": steps,
+        "first_loss": first, "losses": losses,
+        "ms_per_step": dt / steps * 1e3, "images_per_s": DIT_B * steps / dt,
+        "tflops_per_s_6n": 6 * n_params * tokens * steps / dt / 1e12,
+        "peak_gib_timed_steps": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": counts}))
+    return counts
+
+
+def dit_sampling(card: str) -> dict:
+    """ddim_sample on the repo's DiTConfig() in bf16, flash attention, from
+    perturbed init_params(seed=0): 16 images, 50 steps, guidance 4.0 (two
+    forwards a step). Twice from one seed, bitwise equal, finite, of the
+    image shape; K1 launches 2 x n_layers x steps in the timed run.
+    Returns its flash launch counts."""
+    cfg = DiTConfig()
+    model = DiT.from_params(cfg, perturbed(init_params(cfg, seed=0), seed=1),
+                            torch.device("cuda"))
+    labels = torch.arange(SAMPLE_NUM, device="cuda") % cfg.num_classes
+
+    def sample():
+        return dit.ddim_sample(
+            model, torch.Generator(device="cuda").manual_seed(3),
+            num=SAMPLE_NUM, steps=SAMPLE_STEPS, labels=labels,
+            guidance=GUIDANCE)
+
+    first = sample()                                  # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    x = sample()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(fa.launch_counts)
+    want = {"flash_attention_forward": 2 * cfg.n_layers * SAMPLE_STEPS,
+            "flash_attention_backward": 0}
+    shape = (SAMPLE_NUM, cfg.image_size, cfg.image_size, cfg.channels)
+    if tuple(x.shape) != shape or not torch.isfinite(x).all() \
+            or not torch.equal(x, first):
+        raise AssertionError(f"samples {tuple(x.shape)}, finite "
+                             f"{bool(torch.isfinite(x).all())}, equal to a "
+                             f"second run {torch.equal(x, first)}")
+    if counts != want:
+        raise AssertionError(f"sampling launches {counts}, expected {want}")
+    log("dit sampling: " + json.dumps({
+        "card": card, "images": SAMPLE_NUM, "steps": SAMPLE_STEPS,
+        "guidance": GUIDANCE, "seconds": dt, "images_per_s": SAMPLE_NUM / dt,
+        "launches": counts}))
+    return counts
+
+
+def family_steps(card: str, what: str, cfg, loss_fn, batch, tokens: int,
+                 steps: int = FAMILY_STEPS, lr: float = 1e-4) -> dict:
+    """steps AdamW steps of cfg from init_params(seed=0) on one batch (the
+    first is the warm-up): the losses finite and falling, the flash
+    launches as cfg implies; logs ms a step over the others, tokens (or
+    images) a second and peak memory."""
+    state = init_train_state(cfg, adamw(lr, weight_decay=0.01), seed=0)
+    step = make_train_step(loss_fn)
+    fa.reset_launch_counts()
+    state, losses, ms, gib = timed_steps(step, state, batch, steps)
+    counts = dict(fa.launch_counts)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: loss did not fall: {losses}")
+    if counts != flash_launches(cfg, steps):
+        raise AssertionError(f"{what}: flash launches {counts}, expected "
+                             f"{flash_launches(cfg, steps)}")
+    row = {"card": card, "params": sum(p.numel() for p in
+                                       state.model.parameters()),
+           "batch": [list(t.shape) for t in batch], "losses": losses,
+           "ms_per_step": ms, "per_s": tokens / ms * 1e3,
+           "peak_gib": gib, "launches": counts}
+    log(f"{what}: " + json.dumps(row))
+    return row
+
+
+def vit_batch(B: int | None = None):
+    """(images, labels) at ViT-B/16's 224 x 224, VIT_B of them unless
+    given, from torch.Generator(0) on the card."""
+    B = VIT_B if B is None else B
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return (torch.randn(B, VIT_B16.image_size, VIT_B16.image_size, 3,
+                        generator=g, device="cuda"),
+            torch.randint(0, VIT_B16.num_classes, (B,), generator=g,
+                          device="cuda"))
+
+
+def vit_loss_fn(model, batch):
+    return vit_loss(model(batch[0]), batch[1])
+
+
+def token_batch(vocab: int, *shape, seed: int = 0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, vocab, shape, generator=g, device="cuda")
+
+
+def mamba_decode_check(card: str) -> None:
+    """Mamba-130M's widths at 2 layers in f32: ssm_prefill of S 2048, then
+    64 ssm_decode_step steps, each step's logits within 2e-5 of the
+    parallel forward's over the whole sequence."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(MAMBA_130M, n_layers=2, dtype=torch.float32)
+    model = model_class(cfg).from_params(cfg, init_params(cfg, seed=0),
+                                         torch.device("cuda"))
+    tokens = token_batch(cfg.vocab_size, 2, MAMBA_S + 64)
+    with torch.no_grad():
+        full = model(tokens)
+        last, states = ssm_prefill(model, tokens[:, :MAMBA_S])
+        err = max_err(last, full[:, MAMBA_S - 1], 2e-5)
+        for i in range(MAMBA_S, MAMBA_S + 64):
+            logits, states = ssm_decode_step(model, tokens[:, i], states)
+            err = max(err, max_err(logits, full[:, i], 2e-5))
+    log(f"mamba decode f32 (2 layers, prefill {MAMBA_S}, 64 steps): logits "
+        f"within {err:.3g} of the parallel forward's ({card})")
+
+
+def families_phase(card: str) -> dict:
+    """Phase 11. Returns the DiT path's flash launch counts: training's
+    timed steps and sampling."""
+    dit_parity_phase()
+    launches = {"dit": dit_training(card), "dit_sample": dit_sampling(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    images = vit_batch()
+    with torch.no_grad():
+        model = model_class(VIT_B16).from_params(
+            VIT_B16, init_params(VIT_B16, seed=0), torch.device("cuda"))
+        model(images[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model(images[0])
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        if logits.shape != (VIT_B, VIT_B16.num_classes) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"ViT logits {tuple(logits.shape)}")
+    del model
+    log(f"vit-b/16 forward: {fwd_ms:.2f} ms for {VIT_B} images, "
+        f"{VIT_B / fwd_ms * 1e3:.1f} images/s ({card})")
+    family_steps(card, "vit-b/16 training (images/s)", VIT_B16, vit_loss_fn,
+                 images, VIT_B)
+    tgt = token_batch(BERT_BASE.vocab_size, ENC_B, BERT_S)
+    masked = torch.rand(ENC_B, BERT_S, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(1)) < 0.15
+    family_steps(card, "bert-base mlm training (tokens/s)", BERT_BASE,
+                 lambda m, b: mlm_loss(m(b[0])[1], b[1], b[2]),
+                 (torch.where(masked, 103, tgt), tgt, masked),
+                 ENC_B * BERT_S)
+    src = token_batch(T5_BASE.vocab_size, ENC_B, T5_SRC, seed=2)
+    tgt = token_batch(T5_BASE.vocab_size, ENC_B, T5_TGT + 1, seed=3)
+    family_steps(card, "t5-base seq2seq training (tokens/s)", T5_BASE,
+                 lambda m, b: seq2seq_loss(m(b[0], b[1][:, :-1]),
+                                           b[1][:, 1:]),
+                 (src, tgt), ENC_B * (T5_SRC + T5_TGT))
+    mamba_decode_check(card)
+    data = token_batch(MAMBA_130M.vocab_size, MAMBA_B, MAMBA_S + 1, seed=4)
+    row = family_steps(card, "mamba-130m training (tokens/s)", MAMBA_130M,
+                       llama_loss, (data[:, :-1], data[:, 1:]),
+                       MAMBA_B * MAMBA_S, lr=1e-3)
+    if row["peak_gib"] > 60:
+        raise AssertionError(f"mamba training peaked at {row['peak_gib']} "
+                             "GiB, over 60")
+    with nccl_world_of_one() as mesh:
+        sharded_train_check(card, mesh, VIT_B16, TRANSFORMER_RULES,
+                            vit_loss_fn, "vit-b/16 sharded training",
+                            vit_batch(8), steps=1)
+    return launches
+
+
 def run_phase(name: str, fn, *args):
     """Runs one phase; logs its time and peak device memory, then frees
     what it left in the allocator's cache."""
@@ -1331,6 +1708,7 @@ def main():
     moe_counts = run_phase("moe training", training_phase, card, None,
                            MOE_TRAIN_STEPS, MOE_TRAIN_CFG, moe_loss_fn(),
                            "moe training", moe.count_flops_per_token)
+    dit_counts = run_phase("model families", families_phase, card)
 
     for name, row in rows.items():
         row["launches"] = counts[name]
@@ -1339,6 +1717,8 @@ def main():
         row["sharded_launches"] = sharded_counts[name]
         row["moe_launches"] = moe_counts[name]
         row["moe_sharded_launches"] = moe_sharded_counts[name]
+        row["dit_launches"] = dit_counts["dit"][name]
+        row["dit_sample_launches"] = dit_counts["dit_sample"][name]
     print(json.dumps({"kernels": [rows[n] for n in KERNELS]
                       + [flash_rows[n] for n in FLASH_KERNELS]}))
     print(card_line())

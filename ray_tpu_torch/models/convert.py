@@ -1,12 +1,14 @@
-"""Weights for the port's decoders (the Llama and the MoE model): from a
-flax parameter tree, or drawn anew. Both functions dispatch on the
-config's type (`model_class`).
+"""Weights for the port's models: from a flax parameter tree, or drawn
+anew. Both functions dispatch on the config's type (`model_class`).
 
-`params_from_flax` maps the flax tree of ray_tpu.models.llama or
-ray_tpu.models.moe onto the port's state_dict: a Dense `kernel` (in, out)
-becomes a Linear `weight` (out, in); `embed/embedding`, the RMSNorm
-`scale`s and the MoE experts' raw (E, in, out) kernels copy across. bf16
-arrays (ml_dtypes) cross as their uint16 bits, so the copy is bit-exact.
+`params_from_flax` maps the flax tree of the JAX package's model onto the
+port's state_dict, each name through `parallel.sharding.flax_path`: a
+Dense `kernel` (in, out) becomes a Linear `weight` (out, in), a Conv
+`kernel` (kh, kw, in, out) a Conv2d `weight` (out, in, kh, kw); an
+`embedding`, the norms' `scale` and `bias`, the Dense biases and the raw
+parameters (the MoE experts' (E, in, out) kernels, the SSM's `conv_w`,
+`a_log`, `d_skip`, the positional tables) copy across. bf16 arrays
+(ml_dtypes) cross as their uint16 bits, so the copy is bit-exact.
 
 `init_params` draws flax's default initializers for runs without a
 checkpoint, from a seeded torch.Generator on the target device.
@@ -15,15 +17,25 @@ checkpoint, from a seeded torch.Generator on the target device.
 from __future__ import annotations
 
 import math
+import re
 
 import numpy as np
 import torch
+from torch import nn
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models.dit import DiT, DiTConfig
+from ray_tpu_torch.models.encoder import (EncDecConfig, Encoder,
+                                          EncoderConfig, EncoderDecoder)
 from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from ray_tpu_torch.models.moe import MoEConfig, MoEModel
+from ray_tpu_torch.models.ssm import SSMConfig, SSMModel
+from ray_tpu_torch.models.vit import ViT, ViTConfig
+from ray_tpu_torch.parallel.sharding import flax_path
 
-MODELS = {LlamaConfig: LlamaModel, MoEConfig: MoEModel}
+MODELS = {LlamaConfig: LlamaModel, MoEConfig: MoEModel, ViTConfig: ViT,
+          DiTConfig: DiT, EncoderConfig: Encoder,
+          EncDecConfig: EncoderDecoder, SSMConfig: SSMModel}
 
 # flax's lecun_normal: a normal truncated at two standard deviations,
 # rescaled by the std of the unit normal so truncated (scipy's value).
@@ -38,69 +50,66 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def model_class(cfg: LlamaConfig | MoEConfig):
-    """The port's model class for a config: LlamaModel or MoEModel."""
+def model_class(cfg):
+    """The port's model class for a config (LlamaConfig: LlamaModel, ...,
+    SSMConfig: SSMModel)."""
     return MODELS[type(cfg)]
 
 
-def params_from_flax(tree, cfg: LlamaConfig | MoEConfig
-                     ) -> dict[str, torch.Tensor]:
+def params_from_flax(tree, cfg) -> dict[str, torch.Tensor]:
     """tree: the flax variables (`{"params": ...}`) or the params dict,
     holding numpy arrays, of the JAX model of cfg's type. Returns CPU
     tensors keyed as the port's model names them."""
     p = tree.get("params", tree)
-
-    def weight(kernel):  # flax (in, out) -> torch (out, in)
-        return _tensor(kernel).t().contiguous()
-
-    out = {"embed.weight": _tensor(p["embed"]["embedding"])}
-    for i in range(cfg.n_layers):
-        lp, pre = p[f"layers_{i}"], f"layers.{i}."
-        out[pre + "input_norm.scale"] = _tensor(lp["input_norm"]["scale"])
-        out[pre + "post_attn_norm.scale"] = _tensor(
-            lp["post_attn_norm"]["scale"])
-        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            out[pre + f"attn.{name}.weight"] = weight(lp["attn"][name]["kernel"])
-        if isinstance(cfg, MoEConfig):
-            mp = lp["moe"]
-            out[pre + "moe.router.weight"] = weight(mp["router"]["kernel"])
-            for name in ("w_gate", "w_up", "w_down"):
-                out[pre + f"moe.{name}"] = _tensor(mp[name])
-        else:
-            for name in ("gate_proj", "up_proj", "down_proj"):
-                out[pre + f"mlp.{name}.weight"] = weight(
-                    lp["mlp"][name]["kernel"])
-    out["norm.scale"] = _tensor(p["norm"]["scale"])
-    if not getattr(cfg, "tie_embeddings", False):
-        out["lm_head.weight"] = weight(p["lm_head"]["kernel"])
+    out = {}
+    for name, meta in model_class(cfg)(cfg, device="meta").state_dict() \
+            .items():
+        path, perm = flax_path(name, meta.dim())
+        leaf = p
+        for key in path.split("/"):
+            leaf = leaf[key]
+        t = _tensor(leaf)
+        out[name] = t.permute(perm).contiguous() if perm else t
     return out
 
 
 @torch.no_grad()
-def init_params(cfg: LlamaConfig | MoEConfig, seed: int = 0,
-                device=None) -> dict[str, torch.Tensor]:
-    """flax's default initializers: Dense kernels lecun_normal (truncated
-    normal, std 1/sqrt(fan_in)), the embedding normal with std
-    1/sqrt(d_model), RMSNorm scales one. lecun_normal takes the leading
-    dims of a kernel of more than two as its receptive field, so an
-    expert kernel (E, in, out) has fan_in E * in. Drawn in f32, stored in
-    the model's dtypes (the MoE router's is f32)."""
+def init_params(cfg, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
+    """flax's default initializers: Dense and Conv kernels lecun_normal
+    (truncated normal, std 1/sqrt(fan_in)), embeddings normal with std
+    1/sqrt(features), norm scales one, biases zero, and the raw
+    parameters as each model's `raw_init` says (the reference's own
+    initializers: zeros, ones, a normal of a given std; adaLN-Zero's
+    zero kernels). lecun_normal takes the leading dims of a raw kernel of
+    more than two as its receptive field, so an expert kernel (E, in,
+    out) has fan_in E * in. Drawn in f32, stored in the model's dtypes."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = {}
     model = model_class(cfg)(cfg, device="meta")
+    raw = [(re.compile(pat), how) for pat, how in model.raw_init.items()]
+    embeddings = {f"{n}.weight" for n, m in model.named_modules()
+                  if isinstance(m, nn.Embedding)}
+    params = {}
     for name, meta in model.state_dict().items():
-        if name.endswith(".scale"):
-            t = torch.ones(meta.shape, dtype=torch.float32, device=device)
-        elif name == "embed.weight":
-            t = torch.empty(meta.shape, dtype=torch.float32, device=device)
-            t.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+        t = torch.empty(meta.shape, dtype=torch.float32, device=device)
+        how = next((h for pat, h in raw if pat.search(name)), None)
+        if how is not None:
+            if how[0] == "normal":
+                t.normal_(0.0, how[1], generator=gen)
+            else:
+                t.fill_({"zeros": 0.0, "ones": 1.0}[how[0]])
+        elif name.endswith(".scale"):
+            t.fill_(1.0)
+        elif name.endswith(".bias"):
+            t.zero_()
+        elif name in embeddings:
+            t.normal_(0.0, meta.shape[1] ** -0.5, generator=gen)
         else:
-            # a Linear weight (out, in): fan_in is the second dim; a raw
-            # kernel in the flax layout (..., in, out): all but the last
-            fan_in = meta.shape[1] if name.endswith(".weight") \
+            # a Linear or Conv2d weight (out, in, ...): fan_in is all but
+            # the first dim; a raw kernel in the flax layout (..., in,
+            # out): all but the last
+            fan_in = math.prod(meta.shape[1:]) if name.endswith(".weight") \
                 else math.prod(meta.shape[:-1])
-            t = torch.empty(meta.shape, dtype=torch.float32, device=device)
             torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
             t.mul_(fan_in ** -0.5 / _TRUNC_STD)
         params[name] = t.to(meta.dtype)

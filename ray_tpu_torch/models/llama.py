@@ -40,6 +40,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ray_tpu_torch.models.layers import ParamModel
 from ray_tpu_torch.ops.attention import (
     flash_attention,
     mha_reference,
@@ -292,34 +293,16 @@ _REMAT_CONTEXT = {
 }
 
 
-class DecoderModel(nn.Module):
+class DecoderModel(ParamModel):
     """What the port's decoders share: the RoPE tables as the buffers
-    `rope_cos`/`rope_sin` (train/spmd.py replicates them on a mesh) and
-    loading a state_dict without copying it."""
+    `rope_cos`/`rope_sin` (train/spmd.py replicates them on a mesh)."""
 
-    def _set_rope(self, device):
+    def _set_buffers(self, device):
         # RoPE tables computed once per model, f32, (max_seq_len, D/2).
         cos, sin = rope_frequencies(self.cfg.head_dim, self.cfg.max_seq_len,
                                     self.cfg.rope_theta, device)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
-
-    @classmethod
-    def from_params(cls, cfg, params: dict, device: torch.device,
-                    trainable: bool = False):
-        """A model that holds `params` (a state_dict, as init_params or
-        params_from_flax give it) on `device`, without a second copy of
-        tensors already there: two models loaded from one dict share their
-        tensors. For inference by default; `trainable=True` gives
-        parameters that require grad, in train mode."""
-        model = cls(cfg, device="meta")
-        expected = model.state_dict()
-        model.load_state_dict(
-            {k: v.to(device=device, dtype=expected[k].dtype)
-             if k in expected else v for k, v in params.items()},
-            strict=True, assign=True)
-        model._set_rope(device)
-        return model.requires_grad_(trainable).train(trainable)
 
 
 class LlamaModel(DecoderModel):
@@ -333,7 +316,7 @@ class LlamaModel(DecoderModel):
         self.norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.lm_head = None if cfg.tie_embeddings else _linear(
             cfg, device, cfg.d_model, cfg.vocab_size)
-        self._set_rope(device)
+        self._set_buffers(device)
 
     def forward(self, tokens, positions=None, kv_caches=None):
         cfg = self.cfg

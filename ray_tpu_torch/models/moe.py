@@ -288,7 +288,7 @@ class MoEModel(DecoderModel):
         self.norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False,
                                  dtype=cfg.dtype, device=device)
-        self._set_rope(device)
+        self._set_buffers(device)
 
     def forward(self, tokens, positions=None, intermediates=None):
         """Logits (B, S, vocab) in f32. `intermediates`, a dict, receives

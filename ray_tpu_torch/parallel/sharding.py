@@ -1,4 +1,4 @@
-"""Sharding rules: map the Llama's parameters to partition specs and
+"""Sharding rules: map the port's parameters to partition specs and
 DTensor placements. Port of ray_tpu/parallel/sharding.py.
 
 In the reference, regex rules over pytree paths give `PartitionSpec`s and
@@ -9,9 +9,11 @@ with no wrapper engine.
 
 The rules match flax paths (`layers_0/attn/q_proj/kernel`), so a port
 name (`layers.0.attn.q_proj.weight`) is mapped back to its flax path
-before matching, the inverse of models/convert.py's naming, and the spec
-of a Linear weight is transposed: a flax kernel is (in, out), a torch
-weight (out, in). The embedding table is (vocab, d_model) in both.
+before matching (`flax_path`, which models/convert.py's naming follows),
+and the spec of a kernel is permuted as its tensor: a flax Dense kernel
+is (in, out), a torch Linear weight (out, in); a flax Conv kernel is
+(kh, kw, in, out), a torch Conv2d weight (out, in, kh, kw). An embedding
+table is (vocab, d_model) in both.
 """
 
 from __future__ import annotations
@@ -42,20 +44,35 @@ class P(tuple):
         return "P(" + ", ".join(map(repr, self)) + ")"
 
 
-def flax_path(name: str) -> tuple[str, bool]:
-    """(the flax path of the port's parameter `name`, whether its tensor is
-    the transpose of the flax leaf): `layers.0.attn.q_proj.weight` is
-    `layers_0/attn/q_proj/kernel`, transposed; `embed.weight` is
-    `embed/embedding`; a norm's `scale` keeps its name."""
-    parts = name.split(".")
-    if parts[0] == "layers":
-        parts[:2] = [f"layers_{parts[1]}"]
-    if name == "embed.weight":
-        return "embed/embedding", False
+# The port's nn.Embedding modules, whose `weight` is flax's `embedding`.
+EMBEDDINGS = ("embed", "tok_embed", "label_embed")
+# How the port lays out a flax kernel of each rank: a Linear weight is the
+# (in, out) kernel transposed, a Conv2d weight (out, in, kh, kw) the
+# (kh, kw, in, out) kernel permuted; dim i of the port's tensor is dim
+# perm[i] of the flax leaf.
+KERNEL_PERMS = {2: (1, 0), 4: (3, 2, 0, 1)}
+
+
+def flax_path(name: str, ndim: int = 2) -> tuple[str, tuple | None]:
+    """(the flax path of the port's parameter `name` of rank `ndim`, the
+    permutation from the flax leaf's dims to the tensor's, or None):
+    `layers.0.attn.q_proj.weight` is `layers_0/attn/q_proj/kernel`,
+    transposed; a module list's index joins its name as flax's does
+    (`blocks.3` is `blocks_3`, `norm.0` is `norm_0`); `tok_embed.weight`
+    is `tok_embed/embedding`; a bias, a norm's `scale` and a raw
+    parameter keep their names and layout."""
+    parts = []
+    for part in name.split("."):
+        if part.isdigit():
+            parts[-1] += f"_{part}"
+        else:
+            parts.append(part)
+    if parts[-1] == "weight" and len(parts) > 1 and parts[-2] in EMBEDDINGS:
+        return "/".join(parts[:-1] + ["embedding"]), None
     if parts[-1] == "weight":
         parts[-1] = "kernel"
-        return "/".join(parts), True
-    return "/".join(parts), False
+        return "/".join(parts), KERNEL_PERMS[ndim]
+    return "/".join(parts), None
 
 
 class ShardingRules:
@@ -67,14 +84,16 @@ class ShardingRules:
 
     def spec_for(self, name: str, leaf=None) -> P:
         """The spec of the port's parameter `name` (clipped to the leaf's
-        rank, as the reference clips, then transposed for a Linear
-        weight)."""
-        path, transposed = flax_path(name)
+        rank, as the reference clips, then permuted as the port lays the
+        flax kernel out: transposed for a Linear weight)."""
+        ndim = 2 if leaf is None else leaf.dim()
+        path, perm = flax_path(name, ndim)
         spec = next((s for pat, s in self.rules if pat.search(path)),
                     self.default)
         spec = _clip_spec(spec, leaf)
-        if transposed and leaf is not None and leaf.dim() == 2:
-            spec = P(*reversed(tuple(spec) + (None,) * (2 - len(spec))))
+        if perm is not None and leaf is not None:
+            full = tuple(spec) + (None,) * (ndim - len(spec))
+            spec = P(*(full[d] for d in perm))
         return spec
 
     def tree_specs(self, tree: dict) -> dict[str, P]:

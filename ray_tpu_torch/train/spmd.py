@@ -29,8 +29,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.convert import init_params, model_class
-from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
-from ray_tpu_torch.models.moe import MoEConfig, MoEModel
+from ray_tpu_torch.models.layers import ParamModel
 from ray_tpu_torch.parallel.mesh import axis_sizes
 from ray_tpu_torch.parallel.sharding import (P, ShardingRules, distribute,
                                              layout_mesh, spec_axes,
@@ -40,7 +39,7 @@ from ray_tpu_torch.util.collective.ops import mesh_context
 
 @dataclasses.dataclass
 class TrainState:
-    model: LlamaModel | MoEModel        # the params
+    model: ParamModel                  # the params
     optimizer: torch.optim.Optimizer   # the opt state and the update
     step: int = 0
 
@@ -54,7 +53,7 @@ def adamw(learning_rate: float, weight_decay: float = 1e-4):
                              weight_decay=weight_decay)
 
 
-def init_train_state(cfg: LlamaConfig | MoEConfig, optimizer: Callable,
+def init_train_state(cfg, optimizer: Callable,
                      params: dict | None = None, *, seed: int = 0,
                      device=None) -> TrainState:
     """A TrainState on `device` (None means CUDA): the model of cfg's type
@@ -96,19 +95,20 @@ def _mesh_device(mesh: DeviceMesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def _lay_out(model: LlamaModel | MoEModel, tensors: dict, lmesh: DeviceMesh,
+def _lay_out(model: ParamModel, tensors: dict, lmesh: DeviceMesh,
              placements: dict) -> None:
     """Puts each full tensor (the same on every rank) into the model as a
     DTensor parameter with its placements on lmesh (each rank keeps its
-    shard), and the RoPE tables as replicated DTensors."""
+    shard), and its buffers (the decoders' RoPE tables) as replicated
+    DTensors."""
     model.load_state_dict(
         {name: distribute(t, lmesh, placements[name])
          for name, t in tensors.items()}, strict=True, assign=True)
-    for name in ("rope_cos", "rope_sin"):
-        buf = getattr(model, name)
+    for name, buf in list(model.named_buffers()):
         full = buf.full_tensor() if isinstance(buf, DTensor) else buf
-        setattr(model, name, distribute(full, lmesh,
-                                        [Replicate()] * lmesh.ndim))
+        owner, _, attr = name.rpartition(".")
+        setattr(model.get_submodule(owner), attr,
+                distribute(full, lmesh, [Replicate()] * lmesh.ndim))
 
 
 def state_specs_from_rules(state: TrainState, rules: ShardingRules) -> dict:
@@ -123,7 +123,7 @@ def state_specs_from_rules(state: TrainState, rules: ShardingRules) -> dict:
     return {"params": specs, "opt_state": dict(specs), "step": P()}
 
 
-def init_sharded_state(mesh: DeviceMesh, cfg: LlamaConfig | MoEConfig, init,
+def init_sharded_state(mesh: DeviceMesh, cfg, init,
                        rules: ShardingRules, optimizer: Callable,
                        *init_args) -> tuple[TrainState, dict]:
     """A TrainState laid out on the mesh by the rules, and its specs.
@@ -144,7 +144,7 @@ def init_sharded_state(mesh: DeviceMesh, cfg: LlamaConfig | MoEConfig, init,
     specs = rules.tree_specs(meta)
     lmesh = layout_mesh(mesh, specs.values())
     device = _mesh_device(mesh)
-    model._set_rope(device)
+    model._set_buffers(device)
     _lay_out(model, {n: t.to(device=device, dtype=meta[n].dtype)
                      for n, t in params.items()}, lmesh,
              {n: spec_placements(spec, lmesh) for n, spec in specs.items()})

@@ -1,9 +1,10 @@
 """Where the time of the port's training step goes, on one NVIDIA GPU.
 
 Runs the training phase of chip_smoke.py (bench.py's 1.2B Llama config in
-bf16 with flash attention, B 2, S 2048, AdamW) with torch.profiler over
-its timed steps (which prints the phase's own line, its times lengthened
-by the tracing), and prints one JSON line:
+bf16 with flash attention, B 2, S 2048, AdamW; or the MoE's, or DiT-XL/2's
+from phase 11) with torch.profiler over its timed steps (which prints the
+phase's own line, its times lengthened by the tracing), and prints one
+JSON line:
 
 - window_ms: the traced window (first to last event);
 - device_busy_ms / idle_share: the union of kernel intervals, and the
@@ -20,6 +21,7 @@ Run from the repository root on the card:
 
     python3 scripts/torch_train_trace.py          # the 1.2B Llama
     python3 scripts/torch_train_trace.py --moe    # chip_smoke's MoE phase
+    python3 scripts/torch_train_trace.py --dit    # DiT-XL/2, B 32, bf16
 """
 
 from __future__ import annotations
@@ -60,8 +62,11 @@ def group(name: str) -> str:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--moe", action="store_true",
-                    help="trace chip_smoke.py's MoE training phase")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--moe", action="store_true",
+                       help="trace chip_smoke.py's MoE training phase")
+    which.add_argument("--dit", action="store_true",
+                       help="trace chip_smoke.py's DiT-XL/2 training")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_train_trace: no CUDA device available")
@@ -69,7 +74,9 @@ def main():
     chip_smoke._build.build_all()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     steps = MOE_STEPS if args.moe else STEPS
-    if args.moe:
+    if args.dit:
+        chip_smoke.dit_training(card, prof, steps)
+    elif args.moe:
         chip_smoke.training_phase(
             card, prof, steps, chip_smoke.MOE_TRAIN_CFG,
             chip_smoke.moe_loss_fn(), "moe training",
@@ -99,7 +106,7 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
         "card": card,
-        "model": "moe" if args.moe else "llama",
+        "model": "moe" if args.moe else "dit" if args.dit else "llama",
         "steps": steps,
         "window_ms": (end - start) / 1e3,
         "device_busy_ms": busy / 1e3,

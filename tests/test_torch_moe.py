@@ -8,6 +8,21 @@ Tolerances are the reference tests': 2e-5 for the forward and the loss,
 1e-4 for gradients and for parameters after steps. The JAX routing is
 read from the reference's own calls (top_k, the two one_hots and the
 router's softmax), intercepted while it runs eagerly.
+
+The AdamW steps hold every parameter at 1e-4 but first-step ties. AdamW's
+first update is lr * g / (|g| + eps) (eps 1e-8 in optax and torch), so a
+gradient within eps of 0 sets it anywhere in (-lr, lr), and rounding
+noise decides where. At capacity 1.25 the first gradient of
+layers.0.moe.w_down[0, 85, 49] is 2.94e-9 in JAX and -5.19e-10 in the
+port on one CPU (the tensor's rms is 2.3e-3; the element's true gradient
+is 0 within f32 rounding): updates of 0.227 lr and -0.049 lr, and after
+3 steps the element is 8.29e-5 from JAX's; on another CPU the noise gave
+1.2e-4 (0.4 lr), past the tolerance. The routing is identical: every
+other element of the layer is within 0.1 of the tolerance. So an element
+whose first gradients differ and are under eps on either side is held at
+2 lr plus the tolerance (later steps' moments keep 0.1 g and 0.001 g^2 of
+it, nothing at this scale), and there may be at most one in a thousand
+such elements in a tensor.
 """
 
 import dataclasses
@@ -32,6 +47,7 @@ from tests.torch_parallel_ranks import moe_loss  # noqa: E402
 FWD, GRAD = dict(rtol=2e-5, atol=2e-5), dict(rtol=1e-4, atol=1e-4)
 B, S, STEPS = 2, 16, 3
 NEAR_TIE = 1e-6      # router-probability gap under which routing may flip
+LR, ADAM_EPS = 3e-4, 1e-8
 CAPACITY_FACTORS = [1.25, 0.5]
 
 
@@ -154,13 +170,13 @@ def test_grads_match_jax(case):
 
 def test_train_steps_match_jax(case):
     jmodel, jparams, jbatch = case["jmodel"], case["jparams"], case["jbatch"]
-    opt = optax.adamw(3e-4, weight_decay=0.01)
+    opt = optax.adamw(LR, weight_decay=0.01)
     jstep = jax.jit(jspmd.make_train_step(_jax_loss(jmodel), opt))
     jstate = jspmd.TrainState(jparams, opt.init(jparams),
                               jnp.zeros((), jnp.int32))
     tcfg = case["tcfg"]
     state = tspmd.init_train_state(
-        tcfg, tspmd.adamw(3e-4, weight_decay=0.01),
+        tcfg, tspmd.adamw(LR, weight_decay=0.01),
         convert.params_from_flax(jparams, tcfg), device="cpu")
     step = tspmd.make_train_step(moe_loss)
     for i in range(STEPS):
@@ -171,8 +187,26 @@ def test_train_steps_match_jax(case):
                                    **FWD)
     want = convert.params_from_flax(jax.device_get(jstate.params), tcfg)
     for name, p in state.model.state_dict().items():
-        np.testing.assert_allclose(p.numpy(), want[name].numpy(), **GRAD,
-                                   err_msg=name)
+        got, w = p.numpy(), want[name].numpy()
+        tie = first_step_ties(case, name)
+        if tie.any():
+            print(f"{name}: first-step ties at {np.argwhere(tie).tolist()}, "
+                  f"ending {np.abs(got - w)[tie].tolist()} apart")
+        assert tie.sum() <= tie.size // 1000, name
+        np.testing.assert_allclose(got[~tie], w[~tie], **GRAD, err_msg=name)
+        np.testing.assert_allclose(got[tie], w[tie], rtol=0,
+                                   atol=2 * LR + GRAD["atol"], err_msg=name)
+
+
+def first_step_ties(case, name) -> np.ndarray:
+    """The elements of parameter `name` whose first-step gradients (the
+    fixture's, at the initial parameters) differ between JAX and the port
+    and are under AdamW's eps on either side (see the module's
+    docstring)."""
+    want = case["want"]["grads"][name].numpy()
+    got = case["got"]["grads"][name].numpy()
+    return (want != got) & ((np.abs(want) < ADAM_EPS)
+                            | (np.abs(got) < ADAM_EPS))
 
 
 def test_remat_gives_the_grads_of_no_remat(case):

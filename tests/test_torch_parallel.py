@@ -25,17 +25,22 @@ from jax.sharding import NamedSharding  # noqa: E402
 from jax.sharding import PartitionSpec as JP  # noqa: E402
 
 from ray_tpu import parallel as jpar  # noqa: E402
+from ray_tpu.models import encoder as jenc  # noqa: E402
 from ray_tpu.models import llama as jl  # noqa: E402
 from ray_tpu.models import moe as jmoe  # noqa: E402
+from ray_tpu.models import ssm as jssm  # noqa: E402
+from ray_tpu.models import vit as jvit  # noqa: E402
 from ray_tpu.ops import attention as jattn  # noqa: E402
 from ray_tpu.train import spmd as jspmd  # noqa: E402
 from ray_tpu_torch import parallel as tpar  # noqa: E402
+from ray_tpu_torch import models as tmodels  # noqa: E402
 from ray_tpu_torch.models import convert  # noqa: E402
 from ray_tpu_torch.models import llama as tl  # noqa: E402
 from ray_tpu_torch.models import moe as tmoe  # noqa: E402
 from ray_tpu_torch.ops import attention as tattn  # noqa: E402
 from ray_tpu_torch.parallel import sharding as tsh  # noqa: E402
 from tests import torch_parallel_ranks as ranks  # noqa: E402
+from tests.test_torch_models import _random_tree  # noqa: E402
 from tests.test_torch_moe import _jax_forward_and_routing  # noqa: E402
 
 WORLD = 8
@@ -65,6 +70,18 @@ MOE_CASES = {
     "drops": (dataclasses.replace(jmoe.TINY_MOE, capacity_factor=0.5),
               dataclasses.replace(tmoe.TINY_MOE, capacity_factor=0.5),
               dict(dp=2, ep=4), (4, 8)),
+}
+# The other families' sharded steps, on the meshes of the reference's
+# tests (tests/test_models.py::test_vit_forward_and_train_step,
+# tests/test_models_ssm.py): name -> (JAX model, the port's config, the
+# JAX rules, mesh).
+FAMILY_CASES = {
+    "vit": (jvit.ViT(jvit.VIT_TINY), tmodels.VIT_TINY,
+            jpar.TRANSFORMER_RULES, dict(dp=4, tp=2)),
+    "encoder": (jenc.Encoder(jenc.TINY_ENCODER), tmodels.TINY_ENCODER,
+                jpar.TRANSFORMER_RULES, dict(dp=2, fsdp=2, tp=2)),
+    "ssm": (jssm.SSMModel(jssm.TINY_SSM), tmodels.TINY_SSM, jssm.SSM_RULES,
+            dict(dp=2, fsdp=2, tp=2)),
 }
 COLLECTIVES = ["allreduce", "allreduce_mean", "allreduce_max", "allgather",
                "reducescatter", "broadcast", "shift_right", "shift_left",
@@ -135,6 +152,57 @@ def _jax_moe(jcfg, tcfg, mesh_kw, shape, seed):
                 jax.device_get(grads), tcfg).items()}}
 
 
+def _family_batch(name, rng):
+    """The numpy batch of a family's case: (images, labels) for ViT,
+    (inputs, targets, MLM mask) for the encoder, (inputs, targets) for
+    the SSM; a batch of 4."""
+    if name == "vit":
+        return (rng.standard_normal((4, 32, 32, 3)).astype(np.float32),
+                rng.integers(0, 10, (4,)).astype(np.int32))
+    tgt = rng.integers(3, 256, (4, 17)).astype(np.int32)
+    if name == "ssm":
+        return tgt[:, :-1], tgt[:, 1:]
+    mask = rng.random((4, 16)) < 0.3
+    return np.where(mask, 1, tgt[:, :-1]).astype(np.int32), tgt[:, :-1], mask
+
+
+def _jax_family_loss(name, jmodel):
+    def loss_fn(p, b):
+        if name == "vit":
+            return jvit.vit_loss(jmodel.apply(p, b[0]), b[1])
+        if name == "encoder":
+            return jenc.mlm_loss(jmodel.apply(p, b[0])[1], b[1], b[2])
+        return jl.cross_entropy_loss(jmodel.apply(p, b[0]), b[1])
+    return loss_fn
+
+
+def _jax_family(name, seed):
+    """The reference's loss and grads of a family at its tiny config, on
+    random weights (`tests.test_torch_models._random_tree`) and the
+    port's batch, and each parameter's shard shape under its rules on the
+    case's mesh of conftest's 8 CPU devices. The loss and grads are the
+    single-device ones: the reference's own sharded step of the encoder
+    and the SSM on (dp 2, fsdp 2, tp 2) there gives a loss 3% and 0.2%
+    off them (from its init at PRNGKey(0): 6.2503 against 6.4346, 8.1878
+    against 8.1725), where ViT's agrees."""
+    jmodel, tcfg, rules, mesh_kw = FAMILY_CASES[name]
+    mesh = jpar.make_mesh(jpar.MeshConfig(**mesh_kw))
+    batch = _family_batch(name, np.random.default_rng(seed))
+    params = _random_tree(name, seed)
+    loss, grads = jax.jit(jax.value_and_grad(_jax_family_loss(name, jmodel)))(
+        params, tuple(map(jnp.asarray, batch)))
+    shards = jax.tree_util.tree_map(
+        lambda a, sh: np.zeros(sh.shard_shape(a.shape), np.float32),
+        params, rules.tree_shardings(mesh, params))
+    return {"params": {n: t.numpy() for n, t in
+                       convert.params_from_flax(params, tcfg).items()},
+            "local": {n: tuple(t.shape) for n, t in
+                      convert.params_from_flax(shards, tcfg).items()},
+            "batch": batch, "loss": float(loss),
+            "grads": {n: t.numpy() for n, t in convert.params_from_flax(
+                jax.device_get(grads), tcfg).items()}}
+
+
 def _qkv(seed, H):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((2, H, 256, 32), dtype=np.float32)
@@ -156,9 +224,12 @@ def jax_side():
     moe = {name: _jax_moe(jcfg, tcfg, mesh_kw, shape, seed)
            for seed, (name, (jcfg, tcfg, mesh_kw, shape))
            in enumerate(MOE_CASES.items())}
+    families = {name: _jax_family(name, seed)
+                for seed, name in enumerate(FAMILY_CASES)}
     return {"params": port_params, "data": data, "losses": losses,
             "final": {n: t.numpy() for n, t in want.items()},
-            "sp": sp_inputs, "pipe": pipe, "moe": moe}
+            "sp": sp_inputs, "pipe": pipe, "moe": moe,
+            "families": families}
 
 
 @pytest.fixture(scope="module")
@@ -173,6 +244,10 @@ def world(jax_side):
                        "params": jax_side["moe"][name]["params"],
                        "data": jax_side["moe"][name]["data"]}
                 for name, (_, tcfg, mesh_kw, _) in MOE_CASES.items()},
+        "families": {name: {"cfg": tcfg, "mesh": mesh_kw,
+                            "params": jax_side["families"][name]["params"],
+                            "batch": jax_side["families"][name]["batch"]}
+                     for name, (_, tcfg, _, mesh_kw) in FAMILY_CASES.items()},
     }, timeout=SPAWN_TIMEOUT_S)
 
 
@@ -394,6 +469,29 @@ def test_moe_sharded_routing_is_global(world, jax_side, case):
         per_rank = np.split(keep, mesh_kw["dp"])
         assert all((k == 0).any() for k in per_rank), \
             [int((k == 0).sum()) for k in per_rank]
+
+
+# ---------------------------------------------------------------------------
+# (g) the other families' sharded steps: ViT on (dp 4, tp 2) by
+# TRANSFORMER_RULES, the encoder by the same rules and the SSM by SSM_RULES
+# on (dp 2, fsdp 2, tp 2)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_family_sharded_step_matches_jax(world, jax_side, case):
+    """One sharded step's loss and every gradient against the reference's
+    function (see `_jax_family`), and each parameter's local shard shape
+    against the reference's layout of it on the same mesh."""
+    got, want = world[0]["families"][case], jax_side["families"][case]
+    print(f"{case}: first sharded step {got['step_s']:.2f} s")
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=2e-5, atol=0)
+    assert got["grads"].keys() == want["grads"].keys()
+    for name, g in got["grads"].items():
+        np.testing.assert_allclose(g, want["grads"][name], rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    # each rank's shard of each parameter, as GSPMD shards it
+    assert got["local"] == want["local"]
 
 
 # ---------------------------------------------------------------------------

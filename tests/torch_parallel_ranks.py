@@ -21,8 +21,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch.models.encoder import EncoderConfig, mlm_loss
 from ray_tpu_torch.models.llama import LlamaConfig, cross_entropy_loss
 from ray_tpu_torch.models.moe import MOE_RULES, MoEConfig, moe_aux_loss
+from ray_tpu_torch.models.ssm import SSM_RULES, SSMConfig
+from ray_tpu_torch.models.vit import ViTConfig, vit_loss
 from ray_tpu_torch.ops.attention import ring_attention, ulysses_attention
 from torch.distributed.tensor import Replicate
 
@@ -382,4 +385,43 @@ def moe(inputs):
                       state.model.named_parameters()},
             "routing": routing, "mesh": str(lmesh),
             "w_gate": (str(wg.placements), tuple(wg.to_local().shape))}
+    return out if dist.get_rank() == 0 else None
+
+
+def _family_loss(cfg, model, batch):
+    if isinstance(cfg, ViTConfig):
+        return vit_loss(model(batch[0]), batch[1])
+    if isinstance(cfg, EncoderConfig):
+        return mlm_loss(model(batch[0])[1], batch[1], batch[2])
+    return cross_entropy_loss(model(batch[0]), batch[1])
+
+
+def families(inputs):
+    """For each case {"cfg", "mesh", "params", "batch"}: one
+    shard_train_step of the model laid out by its rules (SSM_RULES for the
+    SSM, TRANSFORMER_RULES for the others), the batch over dp and fsdp;
+    the step's loss, every gradient, and each parameter's local shape on
+    this rank."""
+    out = {}
+    for name, case in inputs.items():
+        cfg = case["cfg"]
+        mesh = make_mesh(MeshConfig(**case["mesh"]), device_type="cpu")
+        rules = SSM_RULES if isinstance(cfg, SSMConfig) else TRANSFORMER_RULES
+        state, specs = init_sharded_state(
+            mesh, cfg, {n: torch.from_numpy(a) for n, a in
+                        case["params"].items()}, rules, adamw(LR))
+        batch = tuple(torch.from_numpy(np.asarray(b)) for b in case["batch"])
+        spec = tuple(P(("dp", "fsdp"), *([None] * (b.dim() - 1)))
+                     for b in batch)
+        step = shard_train_step(make_train_step(
+            lambda model, b, cfg=cfg: _family_loss(cfg, model, b)), mesh,
+            specs, spec)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        out[name] = {
+            "loss": metrics["loss"].item(), "step_s": time.perf_counter() - t0,
+            "grads": {n: _full(p.grad) for n, p in
+                      state.model.named_parameters()},
+            "local": {n: tuple(p.to_local().shape) for n, p in
+                      state.model.named_parameters()}}
     return out if dist.get_rank() == 0 else None
