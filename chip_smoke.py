@@ -140,13 +140,52 @@ Phases, in order; a failure in any of them ends the run with an error:
              forward, then 3 steps at full depth in bf16, B 2, S 2048,
              under 60 GiB; ViT-B/16's sharded step by TRANSFORMER_RULES
              on an NCCL world of one, bitwise the single-device step.
+12. disaggregated prefill - run between 4b and 5, on the serving
+             weights: a PrefillEngine(max_len=512) and a PrefixCache(16)
+             beside the paged engine (max_batch 8, page 64, decode chunk
+             8), all three sharing one weights dict. Phase 4's 8 greedy
+             prompts are prefilled (misses) and handed over through
+             submit_prefilled, then again (full hits, no prefill program
+             runs), then each extended by 16 tokens (partial hits, only
+             the suffix program runs): every stream must be the engine's
+             own submit of the prompt, but at a near-tie (as 4b). Prints
+             the prefill's ms per prompt for each kind, the cache's stats
+             and the launches of the hand-off path.
+13. checkpoint - TRAIN_CFG's widths at 4 layers (0.40B parameters), bf16,
+             flash, the training batch and optimizer. Run A: 4 steps,
+             saved through CheckpointManager(num_to_keep=2) on
+             torch.distributed.checkpoint after steps 1-3, which keeps
+             steps 2 and 3. Run B: step 2's checkpoint restored into a
+             state drawn from seed 1, then steps 3 and 4: losses, every
+             parameter and moment bitwise run A's. Then on an NCCL world
+             of one the checkpoint restored onto init_sharded_state's
+             layout by TRANSFORMER_RULES and one sharded step, bitwise run
+             A's step 3. Prints the seconds to save and to restore and the
+             GB written; the directory is deleted.
+14. rl learners - TF32 off. PPOLearner at RLlib's Atari config
+             (atari_cnn on 84x84x4 uint8 frames, 6 actions, hidden 256)
+             and on CartPole (mlp, hidden 64): PPOConfig's defaults
+             (batch 1024 from default_rng(0), minibatch 256, 6 epochs, 24
+             updates) on the card and on the CPU from the same numpy
+             params; the first update's loss within 2e-5 and grads within
+             1e-4, every update's loss within 2e-5, every parameter after
+             24 updates within 1e-4 but at ties (first-step ties, and at
+             most 1% of a parameter's elements whose gradient
+             jumped at a later update where a ReLU input sat at 0 within
+             rounding), counted and held to 2 lr an update; updates/s and
+             samples/s of a second learn() on the card. BC from 30 CartPole expert
+             episodes (5 iterations of 40 steps, lr 3e-3) on the card:
+             evaluate(3) above 100; MARWIL (beta 1), one iteration, a
+             finite loss.
 
 Prints the kernels as one JSON line (a paged kernel's `launches` from
 the serving phase, graph replays included; a flash kernel's from the
 training phase, `sharded_launches` from the sharded one,
 `moe_launches` from the MoE training phase, `moe_sharded_launches`
 from phase 9's sharded steps, `dit_launches` from DiT-XL/2's timed
-steps and `dit_sample_launches` from the sampler's run; its `dit_shape`
+steps, `dit_sample_launches` from the sampler's run and
+`checkpoint_launches` from phase 13's run A; a paged kernel's
+`disagg_launches` from phase 12's hand-offs; a flash kernel's `dit_shape`
 the times at DiT-XL/2's attention, B 32, H 16, S 256, D 72, non-causal),
 the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -161,10 +200,12 @@ import gc
 import json
 import math
 import os
+import shutil
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -172,6 +213,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch import _build
 from ray_tpu_torch.models import (BERT_BASE, LLAMA3_8B, MAMBA_130M,
@@ -190,9 +232,15 @@ from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.parallel import (TRANSFORMER_RULES, MeshConfig, P,
                                     initialize_multihost, make_mesh,
                                     pipeline_apply)
+from ray_tpu_torch.rllib import (BCConfig, CartPole, MARWILConfig, PPOConfig,
+                                 PPOLearner, get_model, write_offline_json)
 from ray_tpu_torch.serve.llm import LLMEngine, LLMServer, _Prefilled
+from ray_tpu_torch.serve.llm_disagg import (PrefillEngine, PrefixCache,
+                                            disagg_counts)
 from ray_tpu_torch.train import (adamw, init_sharded_state, init_train_state,
                                  make_train_step, shard_train_step)
+from ray_tpu_torch.train.checkpoint import (Checkpoint, CheckpointManager,
+                                            restore_pytree)
 from ray_tpu_torch.util.collective import ops as col
 
 H, HKV, D, PAGE = 32, 8, 128, 64                 # LLAMA3_8B, engine page
@@ -218,6 +266,9 @@ TRAIN_CFG = LlamaConfig(vocab_size=32000, d_model=2048, n_layers=16,
                         max_seq_len=2048, dtype=torch.bfloat16,
                         attention="flash", remat=False)
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 10
+# TRAIN_CFG's widths at 4 layers (0.40B parameters): its bf16 params and
+# two AdamW moments are about 2.4 GB on disk.
+CKPT_CFG = dataclasses.replace(TRAIN_CFG, n_layers=4)
 SHARDED_STEPS = 3
 # MIXTRAL_8X7B's widths cut to 4 layers: 6.07B parameters, whose bf16
 # weights, grads and two AdamW moments take about 45 GiB of the card.
@@ -1669,6 +1720,397 @@ def families_phase(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: disaggregated prefill (PrefillEngine, PrefixCache)
+# ---------------------------------------------------------------------------
+
+
+def counted_prefills(pe) -> dict:
+    """Counts the calls of a PrefillEngine's two prefill programs."""
+    calls = {"one": 0, "suffix": 0}
+    for key, attr in (("one", "_prefill_one"), ("suffix", "_prefill_suffix")):
+        real = getattr(pe, attr)
+
+        def counted(*args, _real=real, _key=key):
+            calls[_key] += 1
+            return _real(*args)
+
+        setattr(pe, attr, counted)
+    return calls
+
+
+def timed_prefill(pe, prompt, sp, cache, hit: str) -> tuple[dict, float]:
+    """One PrefillEngine.prefill, which must be a `hit`; its ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pe.prefill(np.asarray(prompt), sp, cache)
+    torch.cuda.synchronize()
+    if out["prefix_hit"] != hit:
+        raise AssertionError(f"disagg: a {out['prefix_hit']} where a {hit} "
+                             "was due")
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def disagg_phase(card: str, params) -> dict:
+    """LLAMA3_8B bf16 on the serving weights: a PrefillEngine(max_len=512)
+    with a PrefixCache(16) beside the paged engine, all on one weights
+    dict (16 entries: the 8 prompts and their 8 extensions; with 8, each
+    extension's insert would evict, as least recently used, the prompt
+    the next extension extends).
+    The 8 greedy prompts of the serving phase are prefilled (misses) and
+    handed over through submit_prefilled, then again (full hits: no
+    prefill program runs), then each extended by 16 tokens (partial hits:
+    only the suffix program runs); every stream must be the engine's own
+    submit of the same prompt, but at a near-tie. Returns the kernels'
+    launches on the hand-off path (counts set to 0 after the engine's own
+    streams)."""
+    cfg = LLAMA3_8B
+    payloads, _warm = serving_payloads(cfg)
+    prompts = [p["prompt_tokens"] for p in payloads if "temperature" not in p]
+    rng = np.random.default_rng(5)
+    extended = [p + [int(x) for x in rng.integers(1, cfg.vocab_size, 16)]
+                for p in prompts]
+    sp = SamplingParams(max_new_tokens=32)
+    pe = PrefillEngine(cfg, params, max_len=MAX_LEN)
+    cache = PrefixCache(16)
+    calls = counted_prefills(pe)
+    eng = LLMEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                    page_size=PAGE, decode_chunk=CHUNK)
+    if pe.model.embed.weight.data_ptr() != eng.model.embed.weight.data_ptr():
+        raise AssertionError("disagg: the prefill engine copied the weights")
+    try:
+        # The engine's own streams (they also capture its decode graph).
+        wants = [h.tokens() for h in [eng.submit(p, sp)
+                                      for p in prompts + extended]]
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        replays0, steps0 = eng.graph_replays, eng.decode_steps
+        runs = {}
+        for run, hit, batch, want_calls in (
+                ("miss", "miss", prompts, {"one": 8, "suffix": 0}),
+                ("full", "full", prompts, {"one": 8, "suffix": 0}),
+                ("partial", "partial", extended, {"one": 8, "suffix": 8})):
+            outs, ms = zip(*(timed_prefill(pe, p, sp, cache, hit)
+                             for p in batch))
+            if calls != want_calls:
+                raise AssertionError(f"disagg {run}: prefill calls {calls}, "
+                                     f"expected {want_calls}")
+            handles = [eng.submit_prefilled(_Prefilled(
+                o["kv"], o["first_token"], o["prompt_len"], o["kv_len"], 0,
+                [], emit_first=True), sp) for o in outs]
+            got = [h.tokens() for h in handles]
+            want = wants[:8] if batch is prompts else wants[8:]
+            for p, toks, w in zip(batch, got, want):
+                hold_greedy(f"disagg {run}", eng.model, cfg, p, toks, w,
+                            BF16_TIE)
+            runs[run] = {"ms_per_prompt": statistics.mean(ms),
+                         "ms": list(ms),
+                         "equal_to_submit": sum(t == w for t, w in
+                                                zip(got, want))}
+        torch.cuda.synchronize()
+        counts = dict(pa.launch_counts)
+        replays = eng.graph_replays - replays0
+        steps = eng.decode_steps - steps0
+    finally:
+        eng.shutdown()
+    if not pages_returned(eng):
+        raise AssertionError("disagg: KV pages not returned")
+    launches = {k: counts[k] + eng.graph_launches.get(k, 0) * replays
+                for k in counts}
+    if launches[ON_PATH] < cfg.n_layers * steps:
+        raise AssertionError(f"disagg: {ON_PATH} launched {launches[ON_PATH]}"
+                             f" times for {steps} decode steps")
+    log("disaggregated prefill: " + json.dumps({
+        "card": card, "streams": 3 * len(prompts), "runs": runs,
+        "cache": cache.stats(), "prefill_calls": calls,
+        "events": dict(disagg_counts), "decode_steps": steps,
+        "graph_replays": replays, "launches": launches}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: checkpoints on torch.distributed.checkpoint
+# ---------------------------------------------------------------------------
+
+
+def state_tensors(state) -> dict:
+    """Each parameter and each of its optimizer's state tensors by name,
+    whole (a DTensor's full tensor), as copies."""
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).clone()
+
+    out = {}
+    for name, p in state.model.named_parameters():
+        out[name] = whole(p.detach())
+        for k, v in state.optimizer.state[p].items():
+            out[f"{name}/{k}"] = whole(v)
+    return out
+
+
+def unequal(got: dict, want: dict) -> list:
+    return sorted(n for n in want if not torch.equal(got[n].cpu(),
+                                                     want[n].cpu()))
+
+
+def checkpoint_phase(card: str) -> dict:
+    """TRAIN_CFG's widths at 4 layers (0.40B parameters), bf16, flash, B 2,
+    S 2048, AdamW(3e-4, 0.01). Run A: 4 steps, saved through
+    CheckpointManager(num_to_keep=2) after steps 1-3. Run B: step 2's
+    checkpoint restored into a state drawn from seed 1, then steps 3 and
+    4, bitwise run A. Then on an NCCL world of one the same checkpoint
+    restored onto init_sharded_state's layout by TRANSFORMER_RULES and
+    one sharded step, bitwise run A's step 3. Returns run A's flash
+    launches."""
+    cfg = CKPT_CFG
+    batch = train_batch(cfg)
+    step = make_train_step(llama_loss)
+    opt = adamw(3e-4, weight_decay=0.01)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(root, num_to_keep=2)
+        a = init_train_state(cfg, opt, seed=0)
+        fa.reset_launch_counts()
+        losses_a, save_s = [], []
+        for i in range(4):
+            a, m = step(a, batch)
+            losses_a.append(m["loss"])
+            if i == 2:
+                after3 = state_tensors(a)
+            if i < 3:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mgr.save(a, metrics={"step": a.step})
+                save_s.append(time.perf_counter() - t0)
+        counts = dict(fa.launch_counts)
+        losses_a = torch.stack(losses_a).tolist()
+        want = state_tensors(a)
+        n_params = sum(p.numel() for p in a.model.parameters())
+        del a
+        kept = [os.path.basename(c.path) for c in mgr.list()]
+        if kept != ["checkpoint_000002", "checkpoint_000003"]:
+            raise AssertionError(f"checkpoint: kept {kept}")
+        if counts != flash_launches(cfg, 4):
+            raise AssertionError(f"checkpoint: flash launches {counts}")
+        path = mgr.list()[0].path
+        written = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(path) for f in fs)
+
+        b = init_train_state(cfg, opt, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Checkpoint(path).to_pytree(b)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if b.step != 2:
+            raise AssertionError(f"checkpoint: restored step {b.step}")
+        losses_b = []
+        for _ in range(2):
+            b, m = step(b, batch)
+            losses_b.append(m["loss"])
+        losses_b = torch.stack(losses_b).tolist()
+        run_b = unequal(state_tensors(b), want)
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        with nccl_world_of_one() as mesh:
+            s, specs = init_sharded_state(mesh, cfg, init_params,
+                                          TRANSFORMER_RULES, opt, cfg, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore_pytree(os.path.join(path, "state"), s)
+            torch.cuda.synchronize()
+            sharded_restore_s = time.perf_counter() - t0
+            sharded = shard_train_step(step, mesh, specs, tuple(
+                P(("dp", "fsdp"), None) for _ in batch))
+            s, m = sharded(s, batch)
+            sharded_loss = m["loss"].item()
+            sharded_unequal = unequal(state_tensors(s), after3)
+            del s
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("checkpoint: " + json.dumps({
+        "card": card, "params": n_params, "layers": cfg.n_layers,
+        "kept": kept, "losses_a": losses_a, "losses_b": losses_b,
+        "sharded_step_3_loss": sharded_loss, "gb_written": written / 1e9,
+        "save_s": save_s, "restore_s": restore_s,
+        "sharded_restore_s": sharded_restore_s, "run_b_unequal": run_b,
+        "sharded_unequal": sharded_unequal, "launches": counts}))
+    if losses_b != losses_a[2:] or run_b:
+        raise AssertionError("checkpoint: run B is not bitwise run A")
+    if sharded_loss != losses_a[2] or sharded_unequal:
+        raise AssertionError("checkpoint: the sharded restore's step is not "
+                             "bitwise run A's step 3")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the RL learners (PPO, BC, MARWIL)
+# ---------------------------------------------------------------------------
+
+
+def ppo_batch(obs_shape, n_act: int, n: int, seed: int = 0) -> dict:
+    """A sampled batch's fields from default_rng(seed): uint8 frames (or
+    float observations), actions, their log-probabilities, advantages and
+    returns."""
+    rng = np.random.default_rng(seed)
+    obs = rng.integers(0, 256, (n, *obs_shape), dtype=np.uint8) \
+        if len(obs_shape) == 3 else \
+        rng.standard_normal((n, *obs_shape)).astype(np.float32)
+    return {"obs": obs,
+            "actions": rng.integers(0, n_act, n).astype(np.int32),
+            "logp": (np.log(1.0 / n_act)
+                     + 0.3 * rng.standard_normal(n)).astype(np.float32),
+            "advantages": rng.standard_normal(n).astype(np.float32),
+            "returns": rng.standard_normal(n).astype(np.float32)}
+
+
+def record_updates(learner) -> dict:
+    """Keeps every update's loss (as device tensors) and the first
+    update's grads."""
+    rec = {"losses": []}
+    real = learner.update
+
+    def update(minibatch):
+        loss, aux = real(minibatch)
+        rec["losses"].append(loss)
+        if "grads" not in rec:
+            rec["grads"] = {f"{k}/{kk}": t.grad.detach().cpu().clone()
+                            for k, sub in learner.params.items()
+                            for kk, t in sub.items()}
+        return loss, aux
+
+    learner.update = update
+    return rec
+
+
+def ppo_parity(card: str, model: str, obs_shape, n_act: int) -> dict:
+    """PPOConfig's defaults (batch 1024, minibatch 256, 6 epochs: 24
+    updates) on the card and on the CPU from the same numpy params: the
+    first update's loss within 2e-5 and grads within 1e-4, every update's
+    loss within 2e-5, and every parameter after the 24 updates within
+    1e-4 but at ties, which are counted and held to 2 lr an update (the
+    most Adam moves an element): first-step ties (a first gradient that
+    differs and is under Adam's eps on either side), and later ties, at
+    most 1% of a parameter's elements (a ReLU input at 0 within
+    rounding at some update, which moves that update's gradient on one
+    side only). Then a second learn() on the card, timed."""
+    cfg = PPOConfig(model=model)
+    spec = get_model(model)
+    obs_in = obs_shape if model == "atari_cnn" else obs_shape[0]
+    params = spec.init_params(obs_in, n_act, spec.default_hidden, cfg.seed)
+    batch = ppo_batch(obs_shape, n_act, cfg.train_batch_size)
+    sides = {}
+    for device in ("cuda", "cpu"):
+        learner = PPOLearner(cfg, obs_in, n_act, params=params, device=device)
+        rec = record_updates(learner)
+        learner.learn(batch, iteration=0)
+        sides[device] = (learner, {"losses": torch.stack(rec["losses"]).cpu(),
+                                   "grads": rec["grads"]})
+    (gpu, rec_gpu), (cpu, rec_cpu) = sides["cuda"], sides["cpu"]
+    updates = cpu.updates
+    if gpu.updates != updates or updates != 24:
+        raise AssertionError(f"ppo {model}: {gpu.updates} and {updates} "
+                             "updates")
+    first_loss_err = max_err(rec_gpu["losses"][0], rec_cpu["losses"][0],
+                             2e-5)
+    loss_err = max_err(rec_gpu["losses"], rec_cpu["losses"], 2e-5)
+    grad_err = max(max_err(rec_gpu["grads"][k], g, 1e-4)
+                   for k, g in rec_cpu["grads"].items())
+    got, want = gpu.get_params(), cpu.get_params()
+    ties, later, param_err, tie_err, faults = 0, {}, 0.0, 0.0, []
+    for k, sub in want.items():
+        for kk, w in sub.items():
+            name, g = f"{k}/{kk}", got[k][kk]
+            a, b = rec_gpu["grads"][name].numpy(), rec_cpu["grads"][name].numpy()
+            tie = (a != b) & ((np.abs(a) < 1e-8) | (np.abs(b) < 1e-8))
+            off = ~tie & (np.abs(g - w) > 1e-4 * (1 + np.abs(w)))
+            ties += int(tie.sum())
+            if off.any():
+                later[name] = int(off.sum())
+            if tie.sum() > max(1, tie.size // 100) or \
+                    off.sum() > max(1, off.size // 100):
+                faults.append(f"{int(tie.sum())} first-step and "
+                              f"{int(off.sum())} later ties in {name}")
+            held = ~(tie | off)
+            param_err = max(param_err,
+                            float(np.abs(g - w)[held].max(initial=0.0)))
+            if (tie | off).any():
+                tie_err = max(tie_err, float(np.abs(g - w)[tie | off].max()))
+    row = {"card": card, "model": model, "obs": list(obs_shape),
+           "updates": updates, "first_loss_err": first_loss_err,
+           "loss_err_24_updates": loss_err, "first_grad_err": grad_err,
+           "param_err_24_updates": param_err, "first_step_ties": ties,
+           "later_ties": later, "tie_err": tie_err}
+    if faults or tie_err > 2 * cfg.lr * updates + 1e-4:
+        log(f"ppo {model}: " + json.dumps(row))
+        raise AssertionError(f"ppo {model}: {faults}, ties moved up to "
+                             f"{tie_err} ({updates} updates at lr {cfg.lr})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu.learn(batch, iteration=1)   # ends in a host read
+    dt = time.perf_counter() - t0
+    row.update(learn_s=dt, updates_per_s=updates / dt,
+               samples_per_s=updates * cfg.sgd_minibatch_size / dt)
+    log(f"ppo {model}: " + json.dumps(row))
+    return row
+
+
+def expert_data(path: str, episodes: int = 30) -> None:
+    """CartPole expert data from the 'lean-toward-the-pole' heuristic
+    (tests/test_rllib_algorithms.py's fixture), written as JSONL."""
+    env = CartPole()
+    batches = []
+    for ep in range(episodes):
+        obs = env.reset(seed=ep)
+        rows = {"obs": [], "actions": [], "rewards": [], "dones": []}
+        done = False
+        while not done:
+            action = 1 if obs[2] + 0.5 * obs[3] > 0 else 0
+            nxt, r, done, _ = env.step(action)
+            for k, v in zip(rows, (obs.tolist(), action, r, float(done))):
+                rows[k].append(v)
+            obs = nxt
+        batches.append(rows)
+    write_offline_json(path, batches)
+
+
+def rl_phase(card: str) -> None:
+    """PPO's learner at RLlib's Atari config (atari_cnn on 84x84x4 uint8
+    frames, 6 actions) and on CartPole (mlp), card against CPU; BC (5
+    iterations of 40 steps, lr 3e-3) trained on the card from 30 expert
+    episodes must balance the pole (evaluate(3) above 100); MARWIL (beta
+    1), one iteration, a finite loss."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ppo_parity(card, "atari_cnn", (84, 84, 4), 6)
+    ppo_parity(card, "mlp", (4,), 2)
+    root = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+    try:
+        path = os.path.join(root, "expert.jsonl")
+        expert_data(path)
+        bc = BCConfig().offline_data(input_path=path).training(
+            num_sgd_iter_per_train=40, lr=3e-3).build()
+        t0 = time.perf_counter()
+        results = [bc.train() for _ in range(5)]
+        train_s = time.perf_counter() - t0
+        ev = bc.evaluate(num_episodes=3)
+        marwil = MARWILConfig(beta=1.0).offline_data(input_path=path) \
+            .training(num_sgd_iter_per_train=10).build()
+        mw = marwil.train()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("bc: " + json.dumps({
+        "card": card, "samples": results[-1]["num_samples"],
+        "losses": [r["loss"] for r in results], "train_s": train_s,
+        "steps_per_s": 200 / train_s, **ev}))
+    log("marwil: " + json.dumps({"card": card, **mw}))
+    if not ev["episode_reward_mean"] > 100:
+        raise AssertionError(f"bc: evaluate(3) gave {ev}")
+    if not (math.isfinite(mw["loss"]) and math.isfinite(mw["mean_weight"])):
+        raise AssertionError(f"marwil: {mw}")
+
+
 def run_phase(name: str, fn, *args):
     """Runs one phase; logs its time and peak device memory, then frees
     what it left in the allocator's cache."""
@@ -1699,6 +2141,8 @@ def main():
     serve_params = serving_weights()
     counts = run_phase("serving", serving_phase, card, None, serve_params)
     run_phase("serving modes", serving_modes_phase, card, serve_params)
+    disagg_launches = run_phase("disaggregated prefill", disagg_phase, card,
+                                serve_params)
     del serve_params
     run_phase("train parity", train_parity_phase)
     flash_counts = run_phase("training", training_phase, card)
@@ -1709,9 +2153,12 @@ def main():
                            MOE_TRAIN_STEPS, MOE_TRAIN_CFG, moe_loss_fn(),
                            "moe training", moe.count_flops_per_token)
     dit_counts = run_phase("model families", families_phase, card)
+    ckpt_counts = run_phase("checkpoint", checkpoint_phase, card)
+    run_phase("rl learners", rl_phase, card)
 
     for name, row in rows.items():
         row["launches"] = counts[name]
+        row["disagg_launches"] = disagg_launches[name]
     for name, row in flash_rows.items():
         row["launches"] = flash_counts[name]
         row["sharded_launches"] = sharded_counts[name]
@@ -1719,6 +2166,7 @@ def main():
         row["moe_sharded_launches"] = moe_sharded_counts[name]
         row["dit_launches"] = dit_counts["dit"][name]
         row["dit_sample_launches"] = dit_counts["dit_sample"][name]
+        row["checkpoint_launches"] = ckpt_counts[name]
     print(json.dumps({"kernels": [rows[n] for n in KERNELS]
                       + [flash_rows[n] for n in FLASH_KERNELS]}))
     print(card_line())

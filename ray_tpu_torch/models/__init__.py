@@ -20,7 +20,7 @@ from ray_tpu_torch.models.encoder import (
     mlm_loss,
     seq2seq_loss,
 )
-from ray_tpu_torch.models.generate import Generator, SamplingParams
+from ray_tpu_torch.models.generate import Generator, SamplingParams, generate
 from ray_tpu_torch.models.llama import (
     LLAMA2_7B,
     LLAMA2_13B,
@@ -64,7 +64,7 @@ from ray_tpu_torch.models.vit import (
 __all__ = [
     "LlamaConfig", "LlamaModel", "LLAMA2_7B", "LLAMA2_13B", "LLAMA3_8B",
     "TINY", "PagedKVCache", "init_kv_caches", "init_params",
-    "params_from_flax", "Generator", "SamplingParams",
+    "params_from_flax", "Generator", "SamplingParams", "generate",
     "cross_entropy_loss", "count_flops_per_token", "MoEConfig", "MoEModel",
     "MIXTRAL_8X7B", "TINY_MOE", "MOE_RULES", "moe_aux_loss",
     "ViT", "ViTConfig", "VIT_B16", "VIT_L16", "VIT_TINY", "vit_loss",

@@ -118,3 +118,20 @@ class Generator:
                     pos = pos + 1
         return out
 
+
+
+def generate(cfg: LlamaConfig, params, prompt_tokens,
+             sampling: SamplingParams | None = None, *,
+             max_len: int | None = None, device=None) -> np.ndarray:
+    """One-shot convenience wrapper around Generator: its bucket is
+    `max_len`, else the prompt plus max_new_tokens, capped at
+    cfg.max_seq_len."""
+    prompts = np.asarray(prompt_tokens, dtype=np.int64)
+    if prompts.ndim == 1:
+        prompts = prompts[None]
+    sp = sampling or SamplingParams()
+    bucket = max_len or min(cfg.max_seq_len,
+                            prompts.shape[1] + sp.max_new_tokens)
+    gen = Generator(cfg, params, batch=prompts.shape[0], max_len=bucket,
+                    device=device)
+    return gen.generate(prompts, sp)

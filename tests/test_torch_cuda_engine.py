@@ -10,8 +10,13 @@ graph-replayed engine, dense (whole and chunked prefill) and paged, equal
 the dense-cache Generator's, a divergence passing only at a near-tie
 (top-2 logit gap < 1e-3); two engines with one rng_seed sample the same
 tokens; two replays of one graph on the same inputs draw different
-noise.
+noise. The prefill pool (serve/llm_disagg.py) in bf16: its misses, full
+hits and partial hits, handed over into the paged engine, decode to the
+engine's own streams, a divergence passing only at a near-tie (top-2 gap
+< 2^-6 of the top logit).
 """
+
+import dataclasses
 
 import pytest
 
@@ -20,7 +25,8 @@ torch = pytest.importorskip("torch")
 from ray_tpu_torch.models import convert  # noqa: E402
 from ray_tpu_torch.models import llama as tl  # noqa: E402
 from ray_tpu_torch.models.generate import Generator, SamplingParams  # noqa: E402
-from ray_tpu_torch.serve.llm import LLMEngine  # noqa: E402
+from ray_tpu_torch.serve.llm import LLMEngine, _Prefilled  # noqa: E402
+from ray_tpu_torch.serve.llm_disagg import PrefillEngine, PrefixCache  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -46,14 +52,18 @@ def params(cuda):
     return convert.init_params(CFG, seed=0, device=cuda)
 
 
-def _top2_gap(model, tokens) -> float:
+def _top2(model, tokens, cfg=CFG) -> tuple[float, float]:
     t = torch.tensor([tokens], device="cuda")
     pos = torch.arange(len(tokens), device="cuda")[None]
     with torch.no_grad():
         logits, _ = model(t, pos, kv_caches=tl.init_kv_caches(
-            CFG, 1, len(tokens), "cuda"))
-    top = torch.topk(logits[0, -1], 2).values
-    return (top[0] - top[1]).item()
+            cfg, 1, len(tokens), "cuda"))
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return (top[0] - top[1]).item(), top[0].item()
+
+
+def _top2_gap(model, tokens) -> float:
+    return _top2(model, tokens)[0]
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -110,3 +120,36 @@ def test_consecutive_replays_draw_new_noise(cuda, params, mode):
     finally:
         eng.shutdown()
     assert (first != second).any()
+
+
+def test_prefill_pool_handoff_into_paged_engine_bf16(cuda):
+    """A PrefillEngine on the engine's weights dict (no second copy): a
+    miss, a full hit (no prefill program) and a partial hit (only the
+    suffix program), each handed over through submit_prefilled, decode
+    to the engine's own stream of the prompt."""
+    cfg = dataclasses.replace(CFG, dtype=torch.bfloat16)
+    params = convert.init_params(cfg, seed=0, device=cuda)
+    sp = SamplingParams(max_new_tokens=12)
+    pe, cache = PrefillEngine(cfg, params, max_len=128), PrefixCache(4)
+    eng = LLMEngine(cfg, params, max_batch=2, max_len=128, page_size=16,
+                    decode_chunk=4)
+    assert pe.model.embed.weight.data_ptr() == \
+        eng.model.embed.weight.data_ptr()
+    prompt, ext = PROMPTS[1], PROMPTS[1] + [21, 22, 23]
+    try:
+        for p, hit in ((prompt, "miss"), (prompt, "full"), (ext, "partial")):
+            out = pe.prefill(p, sp, cache)
+            assert out["prefix_hit"] == hit
+            assert out["kv"][0][0].dtype == torch.bfloat16
+            got = eng.submit_prefilled(_Prefilled(
+                out["kv"], out["first_token"], out["prompt_len"],
+                out["kv_len"], 0, [], emit_first=True), sp).tokens()
+            want = eng.submit(p, sp).tokens()
+            if got != want:
+                j = next(i for i, (a, b) in enumerate(zip(got, want))
+                         if a != b)
+                gap, top = _top2(eng.model, p + want[:j], cfg)
+                assert gap < 2 ** -6 * max(abs(top), 1.0), (got, want)
+    finally:
+        eng.shutdown()
+    assert cache.stats()["hits"] == 2

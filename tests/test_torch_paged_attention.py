@@ -179,10 +179,13 @@ def test_import_loads_no_jax_and_no_cuda():
         "import sys, torch\n"
         "import ray_tpu_torch.serve.llm, ray_tpu_torch.models, "
         "ray_tpu_torch.ops, ray_tpu_torch.train.spmd, "
-        "ray_tpu_torch.parallel, ray_tpu_torch.util.collective.ops\n"
+        "ray_tpu_torch.parallel, ray_tpu_torch.util.collective.ops, "
+        "ray_tpu_torch.serve.llm_disagg, ray_tpu_torch.train.checkpoint, "
+        "ray_tpu_torch.rllib.env, ray_tpu_torch.rllib.catalog, "
+        "ray_tpu_torch.rllib.ppo, ray_tpu_torch.rllib.offline\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                                  'ray_tpu'))\n"
+        "                                  'orbax', 'ray_tpu'))\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -214,6 +217,20 @@ def test_entry_points_raise_without_a_card():
     from ray_tpu_torch.train import adamw, init_train_state
     with pytest.raises(RuntimeError, match="CUDA"):
         init_train_state(TINY_MOE, adamw(3e-4))
+    from ray_tpu_torch.models import generate
+    from ray_tpu_torch.rllib import BCConfig, MARWIL, MARWILConfig, PPOConfig
+    from ray_tpu_torch.rllib import PPOLearner
+    from ray_tpu_torch.serve.llm_disagg import PrefillEngine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(TINY, params, [[1, 2]])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PrefillEngine(TINY, params, max_len=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PPOLearner(PPOConfig(), 4, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MARWIL(MARWILConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BCConfig().build()
 
 
 def test_cuda_wrappers_refuse_other_devices():

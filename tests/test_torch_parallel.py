@@ -233,10 +233,11 @@ def jax_side():
 
 
 @pytest.fixture(scope="module")
-def world(jax_side):
+def world(jax_side, tmp_path_factory):
     """One spawn of 8 gloo ranks running every multi-rank program."""
     return ranks.run_world(WORLD, {
-        "dryrun": {"params": jax_side["params"], "data": jax_side["data"]},
+        "dryrun": {"params": jax_side["params"], "data": jax_side["data"],
+                   "ckpt_dir": str(tmp_path_factory.mktemp("dcp"))},
         "sequence_parallel": jax_side["sp"],
         "pipeline": jax_side["pipe"],
         "collectives": {},
@@ -337,6 +338,22 @@ def test_reshard_next_step_loss(world):
     got = world[0]["dryrun"]["reshard"]
     np.testing.assert_allclose(got["next_loss_resharded"], got["next_loss"],
                                rtol=2e-5, atol=0)
+
+
+def test_checkpoint_restored_onto_another_mesh(world):
+    """The (dp 2, fsdp 2, tp 2) state saved through DCP, each rank writing
+    its shards, and restored onto a fresh state on (fsdp 8), each rank
+    reading its new shards: every parameter and moment, and then one
+    step's loss and state, bitwise reshard_to_mesh's."""
+    got = world[0]["dryrun"]["restore"]
+    print(f"save, restore and the restored step: "
+          f"{world[0]['dryrun']['seconds']['checkpoint']:.2f} s")
+    assert got["unequal_before_step"] == []
+    assert got["placements"] == "(Shard(dim=1),)"
+    assert got["steps"] == [ranks.DRYRUN_STEPS + 1] * 2
+    assert got["next_loss"] == world[0]["dryrun"]["reshard"][
+        "next_loss_resharded"]
+    assert got["unequal_after_step"] == []
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import multiprocessing
+import os
 import queue as queue_mod
 import socket
 import time
@@ -36,6 +37,7 @@ from ray_tpu_torch.parallel.sharding import distribute, spec_placements
 from ray_tpu_torch.train import (adamw, init_sharded_state, init_train_state,
                                  make_train_step, reshard_to_mesh,
                                  shard_train_step)
+from ray_tpu_torch.train.checkpoint import restore_pytree, save_pytree
 from ray_tpu_torch.util.collective import ops as col
 
 # The reference dryrun's flagship model (__graft_entry__.py:157-160).
@@ -166,7 +168,8 @@ def dryrun(inputs):
     "reference"; the same on (dp 2, sp 2, tp 2) with the sequence sharded
     over sp for ring, ulysses and flash; and a second copy of the first
     state resharded to (fsdp 8) after its steps, then one more step on
-    each."""
+    each, and the same state saved through DCP before the reshard and
+    restored onto a fresh state on (fsdp 8), then one step."""
     params, data = inputs["params"], inputs["data"]
     t0 = time.perf_counter()
     seconds = {}
@@ -204,9 +207,20 @@ def dryrun(inputs):
     other, _, _, _, other_losses, _ = _sharded_run(
         DRYRUN_CFG, params, data, mesh, batch_axes, DRYRUN_STEPS)
     before = _state_tensors(other)
+    ckpt = os.path.join(inputs["ckpt_dir"], "state")
+    t_ckpt = time.perf_counter()
+    save_pytree(other, ckpt)
+    t_ckpt = time.perf_counter() - t_ckpt
     fsdp8 = make_mesh(MeshConfig(fsdp=8), device_type="cpu")
     other = reshard_to_mesh(other, specs, fsdp8)
     after = _state_tensors(other)
+    restored, _ = init_sharded_state(
+        fsdp8, DRYRUN_CFG, {n: torch.from_numpy(a) for n, a in params.items()},
+        TRANSFORMER_RULES, adamw(LR))
+    t1 = time.perf_counter()
+    restore_pytree(ckpt, restored)
+    t_ckpt += time.perf_counter() - t1
+    restored_tensors = _state_tensors(restored)
     out["reshard"] = {
         "same_losses": other_losses == losses,
         "names": sorted(before) == sorted(after),
@@ -219,8 +233,25 @@ def dryrun(inputs):
                              (batch_axes, batch_axes))
     _, m = step(state, batch)
     _, m8 = step8(other, batch)
+    t2 = time.perf_counter()
+    _, mr = step8(restored, batch)
+    t_ckpt += time.perf_counter() - t2
     out["reshard"]["next_loss"] = m["loss"].item()
     out["reshard"]["next_loss_resharded"] = m8["loss"].item()
+    stepped, stepped_restored = _state_tensors(other), \
+        _state_tensors(restored)
+    out["restore"] = {
+        "unequal_before_step": sorted(
+            n for n in after if n not in restored_tensors
+            or not np.array_equal(after[n], restored_tensors[n])),
+        "placements": str(
+            restored.model.layers[0].attn.q_proj.weight.placements),
+        "steps": [other.step, restored.step],
+        "next_loss": mr["loss"].item(),
+        "unequal_after_step": sorted(
+            n for n in stepped
+            if not np.array_equal(stepped[n], stepped_restored[n]))}
+    seconds["checkpoint"] = t_ckpt   # save, restore, the restored step
     seconds["reshard"] = time.perf_counter() - t0
 
     sp_mesh = make_mesh(SP_MODEL_MESH, device_type="cpu")
