@@ -177,6 +177,30 @@ Phases, in order; a failure in any of them ends the run with an error:
              episodes (5 iterations of 40 steps, lr 3e-3) on the card:
              evaluate(3) above 100; MARWIL (beta 1), one iteration, a
              finite loss.
+15. runtime serving - run after 12, on the port's own runtime
+             (ray_tpu_torch.init() with its defaults: a GCS, a raylet
+             with its object store, workers forked from a torch-warm
+             zygote). The node's GPU resource equals the card count; a
+             task without a GPU lease sees CUDA_VISIBLE_DEVICES "" and no
+             device, a num_gpus=1 task one card, the driver's; no process
+             of the cluster has jax, ray_tpu, msgpack or cloudpickle
+             loaded. A 64 MiB bf16 CUDA tensor returned by a num_gpus=1
+             task and a CPU tensor put and got come back bitwise, 4
+             rounds (GB/s of each: the first round, which touches the
+             arena's pages first, and the best of the others). Then
+             phase 4's LLMServer at LLAMA3_8B from a num_gpus=1 Serve
+             replica that builds the seed-0 weights on its own card:
+             after the warm-up burst, phase 4's 9 payloads
+             together, 5 through the HTTP proxy (POST /<name>?stream=1)
+             and 4 through a handle; every stream 32 tokens, each greedy
+             one held against the Generator on the driver's copy of the
+             weights (a divergence only at a near-tie, as 4b); the
+             replica's decode steps, graph replays and K3's launches (at
+             least n_layers x the steps); tokens/s and TTFT beside phase
+             4's; the replica's KV pages all back in their pool. After
+             serve.shutdown() and ray_tpu_torch.shutdown() no process of
+             the phase's cluster (its GCS, raylet and every process under
+             them) is left and the card's free memory is back.
 
 Prints the kernels as one JSON line (a paged kernel's `launches` from
 the serving phase, graph replays included; a flash kernel's from the
@@ -185,7 +209,8 @@ training phase, `sharded_launches` from the sharded one,
 from phase 9's sharded steps, `dit_launches` from DiT-XL/2's timed
 steps, `dit_sample_launches` from the sampler's run and
 `checkpoint_launches` from phase 13's run A; a paged kernel's
-`disagg_launches` from phase 12's hand-offs; a flash kernel's `dit_shape`
+`disagg_launches` from phase 12's hand-offs and `runtime_launches` from
+phase 15's replica; a flash kernel's `dit_shape`
 the times at DiT-XL/2's attention, B 32, H 16, S 256, D 72, non-causal),
 the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -683,7 +708,8 @@ def serving_weights() -> dict:
 
 def serving_phase(card: str, window=None, params=None) -> dict:
     """Serves the 9 requests through LLMServer over the paged engine, its
-    decode chunk a CUDA graph; returns the kernels' launches."""
+    decode chunk a CUDA graph; returns the run's figures, the kernels'
+    launches under "launches"."""
     cfg = LLAMA3_8B
     if params is None:
         params = serving_weights()
@@ -700,7 +726,7 @@ def serving_phase(card: str, window=None, params=None) -> dict:
                              f"for {run['decode_steps']} decode steps of "
                              f"{cfg.n_layers} layers")
     log("serving: " + json.dumps({"card": card, **run}))
-    return launches
+    return run
 
 
 def chunked_prefill_check(cfg, params) -> dict:
@@ -2111,6 +2137,387 @@ def rl_phase(card: str) -> None:
         raise AssertionError(f"marwil: {mw}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: runtime serving (the port's own runtime, Serve and its proxy)
+
+RUNTIME_BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "ray_tpu",
+                  "msgpack", "cloudpickle")
+RUNTIME_TENSOR_MIB = 64
+HTTP_STREAMS = 5          # of the 9 payloads; the other 4 through a handle
+
+
+def banned_loaded() -> list:
+    """The packages of RUNTIME_BANNED this process has loaded."""
+    return sorted({m.split(".")[0] for m in sys.modules}
+                  & set(RUNTIME_BANNED))
+
+
+def runtime_tensor(device) -> torch.Tensor:
+    """RUNTIME_TENSOR_MIB of bf16 drawn from seed 7 on `device`."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    return torch.randn(RUNTIME_TENSOR_MIB << 19, generator=gen,
+                       device=device).to(torch.bfloat16)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(
+        a.view(torch.int16).cpu(), b.view(torch.int16).cpu()))
+
+
+class LlamaReplica(LLMServer):
+    """Phase 4's LLMServer as a Serve deployment: the replica builds
+    LLAMA3_8B's weights from seed 0 on its own card (as serving_weights()
+    does) and reports the engine's counters and the kernels' launches."""
+
+    def __init__(self):
+        t0 = time.perf_counter()
+        params = init_params(LLAMA3_8B, seed=0)
+        super().__init__(LLAMA3_8B, params, max_batch=MAX_BATCH,
+                         max_len=MAX_LEN, page_size=PAGE, decode_chunk=CHUNK)
+        torch.cuda.synchronize()
+        self.bringup_s = time.perf_counter() - t0
+
+    def counters(self, reset: bool = False) -> dict:
+        eng = self.engine
+        torch.cuda.synchronize()
+        out = {"decode_steps": eng.decode_steps,
+               "graph_replays": eng.graph_replays,
+               "graph_launches": dict(eng.graph_launches),
+               "eager_launches": dict(pa.launch_counts),
+               "pages_returned": pages_returned(eng),
+               "bringup_s": self.bringup_s,
+               "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "device": str(eng.model.embed.weight.device),
+               "card": torch.cuda.get_device_name(0),
+               "banned": banned_loaded()}
+        if reset:
+            pa.reset_launch_counts()
+        return out
+
+
+def http_stream(port: int, name: str, payload: dict, rec: dict) -> None:
+    """POST /<name>?stream=1 and read the chunked JSON lines as they come."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    toks = []
+    try:
+        conn.request("POST", f"/{name}?stream=1", body=json.dumps(payload))
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"HTTP {resp.status}: {resp.read()[:200]}")
+        for line in resp:
+            if line.strip():
+                if not toks:
+                    rec["first"] = time.perf_counter()
+                toks.append(json.loads(line)["chunk"])
+    except Exception as e:  # recorded; the phase fails below
+        rec["error"] = e
+    finally:
+        conn.close()
+    rec["tokens"], rec["end"] = toks, time.perf_counter()
+
+
+def handle_stream(handle, payload: dict, rec: dict) -> None:
+    toks = []
+    try:
+        for tok in handle.options(stream=True).remote(payload):
+            if not toks:
+                rec["first"] = time.perf_counter()
+            toks.append(tok)
+    except Exception as e:  # recorded; the phase fails below
+        rec["error"] = e
+    rec["tokens"], rec["end"] = toks, time.perf_counter()
+
+
+def _proc_start(pid: int):
+    """The start time of a live process (field 22 of /proc/<pid>/stat),
+    None once it is gone or a zombie: with the pid it names one process."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+    except (OSError, IndexError):
+        return None
+    return None if fields[0] == "Z" else int(fields[19])
+
+
+def cluster_processes(rt) -> dict:
+    """{pid: start time} of the cluster this process started: its GCS,
+    its raylets and every process under them (zygotes, workers, the
+    replica and the proxy)."""
+    node = rt._runtime_node
+    roots = [node.gcs_proc.pid, *(n.proc.pid for n in node.nodes)]
+    children: dict = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        children.setdefault(ppid, []).append(int(pid))
+    found, todo = set(), roots
+    while todo:
+        pid = todo.pop()
+        if pid not in found:
+            found.add(pid)
+            todo.extend(children.get(pid, ()))
+    return {pid: t for pid in found if (t := _proc_start(pid)) is not None}
+
+
+def still_running(procs: dict) -> list:
+    """The pids of `procs` ({pid: start time}) that still run."""
+    return sorted(pid for pid, t in procs.items() if _proc_start(pid) == t)
+
+
+def runtime_start_checks(rt, n_cards: int, card_name: str) -> dict:
+    """Step 1: GPU resources, the pinning of a CPU and a GPU task, and
+    the packages every process of the cluster has loaded."""
+    from ray_tpu_torch._private.api_internal import get_core_worker
+
+    res = rt.cluster_resources()
+    if res.get("GPU") != n_cards:
+        raise AssertionError(f"runtime: GPU resource {res} for {n_cards} "
+                             "cards")
+
+    @rt.remote
+    def cpu_task():
+        return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                torch.cuda.device_count(), banned_loaded())
+
+    @rt.remote(num_gpus=1)
+    def gpu_task():
+        return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                torch.cuda.device_count(), torch.cuda.get_device_name(0),
+                banned_loaded())
+
+    cpu, gpu = rt.get([cpu_task.remote(), gpu_task.remote()], timeout=300)
+    if cpu[:2] != ("", 0):
+        raise AssertionError(f"runtime: a task without a GPU lease sees "
+                             f"{cpu[:2]}")
+    if gpu[1] != 1 or gpu[2] != card_name or not gpu[0]:
+        raise AssertionError(f"runtime: a num_gpus=1 task sees {gpu[:3]}")
+    cw = get_core_worker()
+    daemons = {
+        "raylet": cw._run(cw.raylet.call("GetState", {}))["loaded_packages"],
+        "gcs": cw._run(cw.gcs.call("GetClusterStatus", {}))[
+            "loaded_packages"]}
+    banned = {"cpu worker": cpu[2], "gpu worker": gpu[3],
+              **{k: sorted(set(v) & set(RUNTIME_BANNED))
+                 for k, v in daemons.items()}}
+    if any(banned.values()):
+        raise AssertionError(f"runtime: processes loaded {banned}")
+    return {"resources": res, "cpu_task": list(cpu[:2]),
+            "gpu_task": list(gpu[:3])}
+
+
+def runtime_tensor_checks(rt, rounds: int = 4) -> dict:
+    """Step 2: a CUDA tensor returned by a GPU task, and a CPU tensor put
+    and got, both bitwise. GB/s of each round trip, the first round (the
+    arena's pages still untouched) and the best of the others."""
+
+    @rt.remote(num_gpus=1)
+    def make_tensor():
+        t = runtime_tensor("cuda")
+        torch.cuda.synchronize()
+        return t
+
+    want = runtime_tensor("cuda")
+    host = want.cpu()
+    nbytes = want.numel() * want.element_size()
+    rates = {"cuda_task_return": [], "cpu_put_get": []}
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        got = rt.get(make_tensor.remote(), timeout=300)
+        torch.cuda.synchronize()
+        rates["cuda_task_return"].append(
+            nbytes / (time.perf_counter() - t0) / 1e9)
+        if got.device.type != "cuda" or not same_bits(got, want):
+            raise AssertionError(f"runtime: the CUDA tensor came back on "
+                                 f"{got.device}, or not bitwise")
+        t0 = time.perf_counter()
+        back = rt.get(rt.put(host))
+        rates["cpu_put_get"].append(nbytes / (time.perf_counter() - t0)
+                                    / 1e9)
+        if back.device.type != "cpu" or not same_bits(back, host):
+            raise AssertionError("runtime: the CPU tensor not bitwise")
+        del got, back
+    out = {"tensor_mib": nbytes / 2**20}
+    for k, v in rates.items():
+        out[f"{k}_gb_s_first"], out[f"{k}_gb_s_best"] = v[0], max(v[1:])
+    return out
+
+
+def runtime_oracle() -> tuple:
+    """The Generator's greedy tokens for phase 4's greedy payloads, on
+    the driver's own copy of the seeded LLAMA3_8B weights (the replica
+    builds its own: weights never go through the object store), and the
+    dense-cache model that judges a divergence."""
+    cfg = LLAMA3_8B
+    payloads, _warm = serving_payloads(cfg)
+    params = init_params(cfg, seed=0)
+    wants = []
+    for p in payloads:
+        if "temperature" in p:
+            continue
+        gen = Generator(cfg, params, batch=1,
+                        max_len=len(p["prompt_tokens"]) + p["max_new_tokens"])
+        wants.append([int(x) for x in gen.generate(
+            [p["prompt_tokens"]],
+            SamplingParams(max_new_tokens=p["max_new_tokens"]))[0]])
+    return wants, gen.model
+
+
+def runtime_serving(rt, serve, wants, oracle) -> dict:
+    """Step 3: LLAMA3_8B served from a num_gpus=1 replica, phase 4's
+    payloads sent together, 5 through the HTTP proxy and 4 through a
+    handle; each greedy stream held against the Generator's `wants`."""
+    cfg = LLAMA3_8B
+    payloads, warm = serving_payloads(cfg)
+    greedy = [p for p in payloads if "temperature" not in p]
+    t0 = time.perf_counter()
+    handle = serve.run(serve.deployment(
+        ray_actor_options={"num_gpus": 1, "max_concurrency": 16})(
+            LlamaReplica).bind())
+    counters = handle.options(method_name="counters")
+    before = counters.remote().result(timeout=600)
+    run_s = time.perf_counter() - t0
+    port = serve.start_http_proxy(port=0)
+    name = "LlamaReplica"
+    if before["visible"] in ("", None) or \
+            not before["device"].startswith("cuda"):
+        raise AssertionError(f"runtime: replica on {before['device']}, "
+                             f"CUDA_VISIBLE_DEVICES={before['visible']!r}")
+    # Warm-up burst (captures the decode graph), as phase 4.
+    warm_recs = [{} for _ in warm]
+    threads = [threading.Thread(target=handle_stream, args=(handle, w, r))
+               for w, r in zip(warm, warm_recs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    if any("error" in r for r in warm_recs):
+        raise AssertionError(f"runtime: warm-up failed: {warm_recs}")
+    before = counters.remote(True).result(timeout=120)  # counts set to 0
+    results = [{} for _ in payloads]
+    threads = []
+    start = time.perf_counter()
+    for i, (payload, rec) in enumerate(zip(payloads, results)):
+        rec["submit"] = time.perf_counter()
+        rec["route"] = "http" if i < HTTP_STREAMS else "handle"
+        target, args = ((http_stream, (port, name, payload, rec))
+                        if i < HTTP_STREAMS else
+                        (handle_stream, (handle, payload, rec)))
+        th = threading.Thread(target=target, args=args)
+        th.start()
+        threads.append(th)
+    for th in threads:
+        th.join(600)
+    after = counters.remote().result(timeout=120)
+    for rec, payload in zip(results, payloads):
+        if "error" in rec or len(rec.get("tokens", [])) != \
+                payload["max_new_tokens"]:
+            raise AssertionError(f"runtime: {rec.get('route')} stream of "
+                                 f"{len(payload['prompt_tokens'])} tokens: "
+                                 f"{rec}")
+        if not all(0 <= t < cfg.vocab_size for t in rec["tokens"]):
+            raise AssertionError(f"runtime: token out of the vocabulary: "
+                                 f"{rec}")
+    got = [r["tokens"] for r, p in zip(results, payloads)
+           if "temperature" not in p]
+    for p, toks, want in zip(greedy, got, wants):
+        hold_greedy("runtime serving", oracle, cfg, p["prompt_tokens"], toks,
+                    want, BF16_TIE)
+    steps = after["decode_steps"] - before["decode_steps"]
+    replays = after["graph_replays"] - before["graph_replays"]
+    if steps == 0 or replays * CHUNK != steps:
+        raise AssertionError(f"runtime: {steps} decode steps in {replays} "
+                             "replays of the decode graph")
+    graph = {k: n * replays for k, n in after["graph_launches"].items()}
+    launches = {k: n + graph.get(k, 0)
+                for k, n in after["eager_launches"].items()}
+    if launches[ON_PATH] < cfg.n_layers * steps:
+        raise AssertionError(f"runtime: {ON_PATH} launched "
+                             f"{launches[ON_PATH]} times for {steps} decode "
+                             f"steps of {cfg.n_layers} layers")
+    if after["banned"]:
+        raise AssertionError(f"runtime: the replica loaded {after['banned']}")
+    if not after["pages_returned"]:
+        raise AssertionError("runtime: the replica's KV pages did not all "
+                             "return to the pool")
+    wall = max(r["end"] for r in results) - start
+    ttft = sorted((r["first"] - r["submit"]) * 1e3 for r in results)
+    n_tok = sum(len(r["tokens"]) for r in results)
+    return {"requests": len(results), "http_streams": HTTP_STREAMS,
+            "handle_streams": len(results) - HTTP_STREAMS, "tokens": n_tok,
+            "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ttft_p50_ms": statistics.median(ttft), "ttft_max_ms": ttft[-1],
+            "greedy_equal_to_generator": sum(t == w for t, w in
+                                             zip(got, wants)),
+            "replica_bringup_s": after["bringup_s"], "serve_run_s": run_s,
+            "replica_visible": after["visible"],
+            "decode_steps": steps, "graph_replays": replays,
+            "eager_launches": after["eager_launches"],
+            "graph_launches": graph, "launches": launches}
+
+
+def runtime_phase(card: str, phase4: dict) -> dict:
+    """Phase 15. The port's runtime with its defaults: a GCS, a raylet
+    with its object store, workers forked from the torch-warm zygote;
+    returns the paged kernels' launches in the replica's timed run. The
+    card's free memory is read once the driver holds what it keeps for
+    the phase (the oracle), and again after shutdown: what the cluster's
+    processes held must be back (64 MiB of slack). `phase4` is phase 4's
+    run, whose figures are logged beside this phase's."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    wants, oracle = runtime_oracle()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    n_cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    rt.init()
+    try:
+        init_s = time.perf_counter() - t0
+        start = runtime_start_checks(rt, n_cards,
+                                     torch.cuda.get_device_name(0))
+        tensors = runtime_tensor_checks(rt)
+        run = runtime_serving(rt, serve, wants, oracle)
+    finally:
+        procs = cluster_processes(rt)
+        t_down = time.perf_counter()
+        serve.shutdown()
+        rt.shutdown()
+    deadline = time.time() + 60
+    while still_running(procs) and time.time() < deadline:
+        time.sleep(0.05)
+    left = still_running(procs)
+    down_s = time.perf_counter() - t_down
+    gc.collect()
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    while free0 - free1 > 64 << 20 and time.time() < deadline:
+        time.sleep(0.2)
+        free1 = torch.cuda.mem_get_info()[0]
+    phase4 = {k: phase4.get(k) for k in (
+        "tokens_per_s", "ttft_p50_ms", "ttft_max_ms", "wall_s")}
+    log("runtime serving: " + json.dumps({
+        "card": card, "init_s": init_s, **start, **tensors, **run,
+        "cluster_processes": len(procs), "shutdown_s": down_s,
+        "free_gib_before": free0 / 2**30, "free_gib_after": free1 / 2**30,
+        "phase4_in_process": phase4}))
+    if left:
+        raise AssertionError(f"runtime: processes left after shutdown: "
+                             f"{left}")
+    if free0 - free1 > 64 << 20:
+        raise AssertionError(f"runtime: card memory free {free1 / 2**30:.3f}"
+                             f" GiB after the phase, {free0 / 2**30:.3f} "
+                             "GiB before")
+    return run["launches"]
+
+
 def run_phase(name: str, fn, *args):
     """Runs one phase; logs its time and peak device memory, then frees
     what it left in the allocator's cache."""
@@ -2139,11 +2546,15 @@ def main():
     flash_rows = run_phase("flash", flash_kernel_phase, card)
     run_phase("parity", parity_phase)
     serve_params = serving_weights()
-    counts = run_phase("serving", serving_phase, card, None, serve_params)
+    serving_run = run_phase("serving", serving_phase, card, None,
+                            serve_params)
+    counts = serving_run["launches"]
     run_phase("serving modes", serving_modes_phase, card, serve_params)
     disagg_launches = run_phase("disaggregated prefill", disagg_phase, card,
                                 serve_params)
     del serve_params
+    runtime_launches = run_phase("runtime serving", runtime_phase, card,
+                                 serving_run)
     run_phase("train parity", train_parity_phase)
     flash_counts = run_phase("training", training_phase, card)
     sharded_counts = run_phase("sharded training", sharded_training_phase,
@@ -2159,6 +2570,7 @@ def main():
     for name, row in rows.items():
         row["launches"] = counts[name]
         row["disagg_launches"] = disagg_launches[name]
+        row["runtime_launches"] = runtime_launches[name]
     for name, row in flash_rows.items():
         row["launches"] = flash_counts[name]
         row["sharded_launches"] = sharded_counts[name]

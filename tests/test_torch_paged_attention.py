@@ -182,10 +182,16 @@ def test_import_loads_no_jax_and_no_cuda():
         "ray_tpu_torch.parallel, ray_tpu_torch.util.collective.ops, "
         "ray_tpu_torch.serve.llm_disagg, ray_tpu_torch.train.checkpoint, "
         "ray_tpu_torch.rllib.env, ray_tpu_torch.rllib.catalog, "
-        "ray_tpu_torch.rllib.ppo, ray_tpu_torch.rllib.offline\n"
+        "ray_tpu_torch.rllib.ppo, ray_tpu_torch.rllib.offline, "
+        "ray_tpu_torch, ray_tpu_torch.serve, ray_tpu_torch._private.gcs, "
+        "ray_tpu_torch._private.raylet, ray_tpu_torch._private.worker, "
+        "ray_tpu_torch._private.worker_zygote, ray_tpu_torch._private.node, "
+        "ray_tpu_torch.util.placement_group, "
+        "ray_tpu_torch.util.scheduling_strategies\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                                  'orbax', 'ray_tpu'))\n"
+        "                                  'orbax', 'ray_tpu', 'msgpack',\n"
+        "                                  'cloudpickle'))\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
