@@ -201,6 +201,32 @@ Phases, in order; a failure in any of them ends the run with an error:
              serve.shutdown() and ray_tpu_torch.shutdown() no process of
              the phase's cluster (its GCS, raylet and every process under
              them) is left and the card's free memory is back.
+16. gang training - run last, on ray_tpu_torch.init()'s defaults again.
+             A num_gpus=0.25 actor forms an NCCL group of one and runs
+             allreduce (sum, product, min, max), allgather,
+             reducescatter (7 rows), broadcast and barrier on seeded
+             bf16 and f32 CUDA tensors, bitwise the CPU's result by the
+             reference's rules for a world of one. The device plane:
+             phase 15's 64 MiB bf16 tensor from a num_gpus=0.25 task
+             with tensor_transport="device", got by the driver, and a
+             driver tensor from device_put got by a num_gpus=0.25 actor,
+             bitwise, both by the ipc route with host_fallback 0 (GB/s
+             beside the same task's return by the host path); the
+             registries empty once the refs are dropped. Then
+             TorchTrainer(num_workers=1, use_gpu=True) on half of the
+             card (the other half leaves room for 4 landings of 1/8)
+             trains TRAIN_CFG: the driver's seed-0 weights by
+             broadcast_weights (ipc), the training phase's batch 11
+             times as a Dataset of token rows from default_rng(0) with a
+             map_batches stage, read with iter_device_batches (device
+             landings), make_train_step over K1 and K1-bwd, one warm-up
+             and 10 timed steps each reported with its loss and time.
+             The losses must equal the training phase's, bitwise, and
+             fall; K1 and K1-bwd launch 16 times a step in the worker;
+             every batch a device landing by the ipc route; tokens/s
+             beside the training phase's. After the shutdown no process
+             of the phase's cluster is left and the card's memory is
+             back.
 
 Prints the kernels as one JSON line (a paged kernel's `launches` from
 the serving phase, graph replays included; a flash kernel's from the
@@ -208,7 +234,8 @@ training phase, `sharded_launches` from the sharded one,
 `moe_launches` from the MoE training phase, `moe_sharded_launches`
 from phase 9's sharded steps, `dit_launches` from DiT-XL/2's timed
 steps, `dit_sample_launches` from the sampler's run and
-`checkpoint_launches` from phase 13's run A; a paged kernel's
+`checkpoint_launches` from phase 13's run A, `gang_launches` from
+phase 16's gang worker; a paged kernel's
 `disagg_launches` from phase 12's hand-offs and `runtime_launches` from
 phase 15's replica; a flash kernel's `dit_shape`
 the times at DiT-XL/2's attention, B 32, H 16, S 256, D 72, non-causal),
@@ -1223,6 +1250,8 @@ def training_phase(card: str, window=None, steps: int = TRAIN_STEPS,
                              f"({cfg.n_layers} layers x {steps} steps, "
                              f"remat {cfg.remat})")
     tokens_per_s = TRAIN_B * TRAIN_S * steps / dt
+    TRAINED[what] = {"losses": [first] + losses, "tokens_per_s": tokens_per_s,
+                     "ms_per_step": dt / steps * 1e3}
     log(f"{what}: " + json.dumps({
         "card": card, "layers": cfg.n_layers, "batch": TRAIN_B,
         "seq": TRAIN_S, "steps": steps, "first_loss": first,
@@ -1233,6 +1262,11 @@ def training_phase(card: str, window=None, steps: int = TRAIN_STEPS,
         "peak_gib_timed_steps": torch.cuda.max_memory_allocated() / 2**30,
         "launches": counts}))
     return counts
+
+
+# What each training_phase run saw, by its name: the warm-up's loss and
+# the timed steps' losses, tokens/s (phase 16 holds its gang against it).
+TRAINED: dict = {}
 
 
 def timed_steps(step, state, batch, n_steps: int):
@@ -2518,6 +2552,323 @@ def runtime_phase(card: str, phase4: dict) -> dict:
     return run["launches"]
 
 
+# Phase 16: the gang's worker holds half of the card; a landing task
+# takes data.dataset.LANDING_GPU_SHARE (1/8), so 4 landings run beside it.
+GANG_GPU_SHARE = 0.5
+GANG_TASK_SHARE = 0.25     # the device-plane phase's producer task and actor
+
+
+def gang_collectives(rt) -> dict:
+    """Step 1: an NCCL group of one in a num_gpus actor: allreduce (each
+    op), allgather, reducescatter (7 rows), broadcast and barrier on
+    seeded bf16 and f32 CUDA tensors, held bitwise against the same ops
+    on the CPU by the reference's rules for a world of one (a reduction
+    over one member is its tensor, a gather the list of it,
+    array_split(x, 1)[0] its tensor)."""
+
+    @rt.remote(num_gpus=GANG_TASK_SHARE)
+    class Member:
+        def run(self):
+            from ray_tpu_torch.util import collective as col
+
+            t0 = time.perf_counter()
+            col.init_collective_group(1, 0, backend="nccl",
+                                      group_name="smoke")
+            out, bad = {}, []
+            gen = torch.Generator().manual_seed(3)
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(7, 1024, generator=gen).to(dtype)
+                name = str(dtype).removeprefix("torch.")
+                got = {f"allreduce_{op}": col.allreduce(
+                    x.cuda(), "smoke", op=op).cpu()
+                    for op in ("sum", "product", "min", "max")}
+                got["allgather"] = torch.stack(
+                    col.allgather(x.cuda(), "smoke")).cpu()
+                got["reducescatter"] = col.reducescatter(
+                    x.cuda(), "smoke").cpu()
+                got["broadcast"] = col.broadcast(x.cuda(), 0, "smoke").cpu()
+                col.barrier("smoke")
+                want = {k: x for k in got}
+                want["allgather"] = torch.stack([x])
+                want["reducescatter"] = torch.tensor_split(x, 1)[0]
+                for k, g in got.items():
+                    if not same_bits(g.view(-1).view(torch.int16),
+                                     want[k].reshape(-1).view(torch.int16)):
+                        bad.append(f"{name} {k}")
+                out[name] = sorted(got)
+            col.destroy_collective_group("smoke")
+            return {"ops": out, "bad": bad, "group_s": time.perf_counter()
+                    - t0, "group_size": 1}
+
+    m = Member.remote()
+    try:
+        out = rt.get(m.run.remote(), timeout=300)
+    finally:
+        rt.kill(m)
+    if out["bad"]:
+        raise AssertionError(f"gang: NCCL ops differ from the CPU's: "
+                             f"{out['bad']}")
+    return out
+
+
+def registry_pins(rt) -> int:
+    """Tensors pinned in the device registries of this node's workers."""
+    from ray_tpu_torch._private.api_internal import get_core_worker
+
+    cw = get_core_worker()
+    resp = cw._run(cw.raylet.call("NodeDeviceObjects", {}))
+    errors = [w for w in resp["workers"] if "error" in w]
+    if errors:
+        raise AssertionError(f"gang: NodeDeviceObjects failed: {errors}")
+    return sum(w["pinned_objects"] for w in resp["workers"])
+
+
+def gang_device_plane(rt) -> dict:
+    """Step 2: phase 15's 64 MiB bf16 tensor from a GPU-share task with
+    tensor_transport="device", got by the driver; a driver tensor from
+    device_put, got by a GPU-share actor. Both bitwise and both by the
+    ipc route, host_fallback 0; GB/s of each get (the producer's work
+    done first), beside the same task's return through the host path.
+    Once the refs are dropped every registry is empty."""
+    from ray_tpu_torch._private import device_objects as dobj
+
+    @rt.remote(num_gpus=GANG_TASK_SHARE)
+    def make_tensor():
+        t = runtime_tensor("cuda")
+        torch.cuda.synchronize()
+        return t
+
+    @rt.remote(num_gpus=GANG_TASK_SHARE)
+    class Taker:
+        def __init__(self):
+            torch.zeros(1, device="cuda")   # its CUDA started before a take
+
+        def take(self, t, t_sent):
+            got = time.perf_counter() - t_sent
+            torch.cuda.synchronize()
+            want = runtime_tensor("cuda")
+            return {"bitwise": same_bits(t, want), "s": got,
+                    "device": str(t.device), "counters": dobj.counters()}
+
+        def pins(self):
+            return dobj.registry().stats()["pinned_objects"]
+
+    want = runtime_tensor("cuda")
+    nbytes = want.numel() * want.element_size()
+    before = dobj.counters()
+    out = {"tensor_mib": nbytes / 2**20}
+    for route in ("host", "device"):
+        opts = {"tensor_transport": "device"} if route == "device" else {}
+        rates = []
+        for _ in range(3):
+            ref = make_tensor.options(**opts).remote()
+            rt.wait([ref], timeout=300)
+            t0 = time.perf_counter()
+            got = rt.get(ref, timeout=300)
+            torch.cuda.synchronize()
+            rates.append(nbytes / (time.perf_counter() - t0) / 1e9)
+            if got.device.type != "cuda" or not same_bits(got, want):
+                raise AssertionError(f"gang: the {route} task return came "
+                                     f"back on {got.device}, or not bitwise")
+            del ref, got
+        out[f"task_{route}_gb_s_first"] = rates[0]
+        out[f"task_{route}_gb_s_best"] = max(rates[1:])
+    driver = {k: v - before.get(k, 0) for k, v in dobj.counters().items()}
+    taker = Taker.remote()
+    rt.get(taker.pins.remote(), timeout=300)     # the actor is up
+    ref = dobj.device_put(want)
+    got = rt.get(taker.take.remote(ref, time.perf_counter()), timeout=300)
+    del ref
+    if not got["bitwise"] or not got["device"].startswith("cuda"):
+        raise AssertionError(f"gang: device_put's tensor reached the actor "
+                             f"as {got}")
+    out["device_put_to_actor_gb_s"] = nbytes / got["s"] / 1e9
+    actor = got["counters"]
+    out["driver_routes"] = {k: driver[k] for k in ("ipc", "collective",
+                                                   "host_fallback")}
+    out["actor_routes"] = {k: actor[k] for k in ("ipc", "collective",
+                                                 "host_fallback")}
+    if (driver["ipc"], driver["host_fallback"]) != (3, 0) or \
+            (actor["ipc"], actor["host_fallback"]) != (1, 0):
+        raise AssertionError(f"gang: routes driver {driver}, actor {actor}:"
+                             " expected the ipc route every time")
+    deadline = time.time() + 30
+    while time.time() < deadline and (
+            dobj.registry().stats()["pinned_objects"] or registry_pins(rt)):
+        time.sleep(0.1)
+    out["pins_after"] = {"driver": dobj.registry().stats()["pinned_objects"],
+                         "node": registry_pins(rt)}
+    rt.kill(taker)
+    if any(out["pins_after"].values()):
+        raise AssertionError(f"gang: pins left after the refs were dropped:"
+                             f" {out['pins_after']}")
+    return out
+
+
+def gang_inputs(batch):
+    """The Dataset's map_batches stage: a row of S + 1 tokens becomes its
+    inputs and targets."""
+    tok = batch["tokens"]
+    return {"inp": tok[:, :-1], "tgt": tok[:, 1:]}
+
+
+def gang_loop(config):
+    """The gang worker's train loop: the broadcast weights, batches from
+    iter_device_batches (device landings), make_train_step over K1 and
+    K1-bwd; one warm-up step, then the timed steps, each reported with
+    its loss and time; the flash launches of the timed steps, the device
+    plane's routes and the landings are reported last."""
+    from ray_tpu_torch._private import device_objects as dobj
+    from ray_tpu_torch.data import dataset as data_mod
+    from ray_tpu_torch.train import session
+
+    t_ready = time.time()
+    state = init_train_state(config["cfg"], adamw(3e-4, weight_decay=0.01),
+                             session.get_broadcast_weights())
+    step = make_train_step(llama_loss)
+    batches = iter(config["dataset"].iter_device_batches(batch_size=TRAIN_B))
+    for i in range(TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        fetch_s = time.perf_counter() - t0
+        if i == 1:
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            t_steps = t0
+        t0 = time.perf_counter()
+        state, metrics = step(state, (batch["inp"], batch["tgt"]))
+        loss = metrics["loss"].item()
+        session.report({"step": i, "loss": loss, "fetch_s": fetch_s,
+                        "step_s": time.perf_counter() - t0,
+                        "loop_started": t_ready})
+    wall = time.perf_counter() - t_steps
+    if next(batches, None) is not None:
+        raise AssertionError("gang: the Dataset held more batches")
+    session.report({"step": "end", "launches": dict(fa.launch_counts),
+                    "steps_wall_s": wall,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "routes": dobj.counters(),
+                    "landings": data_mod.landing_counters(),
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "banned": banned_loaded()})
+
+
+def gang_training(rt, card: str) -> dict:
+    """Step 3: TRAIN_CFG trained by TorchTrainer(num_workers=1,
+    use_gpu=True) on GANG_GPU_SHARE of the card: the driver's seed-0
+    weights by broadcast_weights, the training phase's batch 11 times
+    (one warm-up step and TRAIN_STEPS timed ones) as a Dataset of token
+    rows from default_rng(0) with a map_batches stage."""
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    cfg = TRAIN_CFG
+    rows = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (TRAIN_B, TRAIN_S + 1))
+    dataset = rd.from_items([{"tokens": r} for _ in range(TRAIN_STEPS + 1)
+                             for r in rows]).map_batches(gang_inputs)
+    weights = init_params(cfg, seed=0)
+    trainer = TorchTrainer(
+        gang_loop, train_loop_config={"cfg": cfg, "dataset": dataset},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                     gpus_per_worker=GANG_GPU_SHARE),
+        initial_weights=weights)
+    t0 = time.time()
+    result = trainer.fit()
+    fit_s = time.time() - t0
+    del weights
+    steps = [m for m in result.metrics_history if m["step"] != "end"]
+    end = result.metrics_history[-1]
+    losses = [m["loss"] for m in steps]
+    want = TRAINED["training"]
+    timed = sum(m["step_s"] for m in steps[1:])
+    out = {"card": card, "gpu_share": GANG_GPU_SHARE, "fit_s": fit_s,
+           "s_to_ready_loop": steps[0]["loop_started"] - t0,
+           "weights_received": trainer.weights_received,
+           "losses": losses, "training_phase_losses": want["losses"],
+           "max_abs_loss_diff": max(abs(a - b) for a, b in
+                                    zip(losses, want["losses"])),
+           "tokens_per_s": TRAIN_B * TRAIN_S * TRAIN_STEPS
+           / end["steps_wall_s"],
+           "tokens_per_s_steps_only": TRAIN_B * TRAIN_S * TRAIN_STEPS / timed,
+           "training_phase_tokens_per_s": want["tokens_per_s"],
+           "ms_per_step": end["steps_wall_s"] / TRAIN_STEPS * 1e3,
+           "fetch_ms": [m["fetch_s"] * 1e3 for m in steps],
+           "step_ms": [m["step_s"] * 1e3 for m in steps],
+           "peak_gib": end["peak_gib"], "launches": end["launches"],
+           "worker_routes": {k: end["routes"][k] for k in (
+               "ipc", "collective", "host_fallback", "in_process")},
+           "landings": end["landings"], "worker_visible": end["visible"]}
+    log("gang training: " + json.dumps(out))
+    expect = flash_launches(cfg, TRAIN_STEPS)
+    if len(losses) != TRAIN_STEPS + 1 or losses != want["losses"]:
+        raise AssertionError(f"gang: losses {losses} != the training "
+                             f"phase's {want['losses']}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"gang: loss did not fall: {losses}")
+    if end["launches"] != expect:
+        raise AssertionError(f"gang: flash launches {end['launches']}, "
+                             f"expected {expect}")
+    if end["landings"]["host_batches"] or not end["landings"][
+            "device_landings"] or end["routes"]["host_fallback"] \
+            or not end["routes"]["ipc"]:
+        raise AssertionError(f"gang: landings {end['landings']}, routes "
+                             f"{end['routes']}: expected device landings "
+                             "by the ipc route only")
+    if end["banned"]:
+        raise AssertionError(f"gang: the worker loaded {end['banned']}")
+    return out
+
+
+def gang_phase(card: str) -> dict:
+    """Phase 16. The port's runtime with its defaults, as phase 15: an
+    NCCL group of one, the device plane's ipc route, then the training
+    gang fed by Data. Returns the flash kernels' launches in the gang
+    worker's timed steps. After the shutdown no process of the phase's
+    cluster is left and the card's free memory is back (64 MiB of
+    slack)."""
+    import ray_tpu_torch as rt
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    rt.init()
+    try:
+        init_s = time.perf_counter() - t0
+        coll = gang_collectives(rt)
+        plane = gang_device_plane(rt)
+        log("gang device plane: " + json.dumps({
+            "card": card, "init_s": init_s, "collectives": coll, **plane}))
+        run = gang_training(rt, card)
+    finally:
+        procs = cluster_processes(rt)
+        t_down = time.perf_counter()
+        rt.shutdown()
+    deadline = time.time() + 60
+    while still_running(procs) and time.time() < deadline:
+        time.sleep(0.05)
+    left = still_running(procs)
+    down_s = time.perf_counter() - t_down
+    gc.collect()
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    while free0 - free1 > 64 << 20 and time.time() < deadline:
+        time.sleep(0.2)
+        free1 = torch.cuda.mem_get_info()[0]
+    log("gang shutdown: " + json.dumps({
+        "cluster_processes": len(procs), "shutdown_s": down_s,
+        "free_gib_before": free0 / 2**30, "free_gib_after": free1 / 2**30}))
+    if left:
+        raise AssertionError(f"gang: processes left after shutdown: {left}")
+    if free0 - free1 > 64 << 20:
+        raise AssertionError(f"gang: card memory free {free1 / 2**30:.3f} "
+                             f"GiB after the phase, {free0 / 2**30:.3f} GiB "
+                             "before")
+    return run["launches"]
+
+
 def run_phase(name: str, fn, *args):
     """Runs one phase; logs its time and peak device memory, then frees
     what it left in the allocator's cache."""
@@ -2566,6 +2917,7 @@ def main():
     dit_counts = run_phase("model families", families_phase, card)
     ckpt_counts = run_phase("checkpoint", checkpoint_phase, card)
     run_phase("rl learners", rl_phase, card)
+    gang_counts = run_phase("gang training", gang_phase, card)
 
     for name, row in rows.items():
         row["launches"] = counts[name]
@@ -2579,6 +2931,7 @@ def main():
         row["dit_launches"] = dit_counts["dit"][name]
         row["dit_sample_launches"] = dit_counts["dit_sample"][name]
         row["checkpoint_launches"] = ckpt_counts[name]
+        row["gang_launches"] = gang_counts[name]
     print(json.dumps({"kernels": [rows[n] for n in KERNELS]
                       + [flash_rows[n] for n in FLASH_KERNELS]}))
     print(card_line())

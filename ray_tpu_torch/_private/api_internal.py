@@ -141,6 +141,19 @@ class ObjectRef:
         raise NotImplementedError
 
 
+class DeviceObjectRef(ObjectRef):
+    """Reference to an object whose tensors stay pinned on the producing
+    worker (device object plane, _private/device_objects.py); only a
+    descriptor travels the object path. Flows through task args and
+    ray_tpu_torch.get like any ObjectRef; resolution picks the cheapest
+    transfer route."""
+
+    __slots__ = ()
+
+    def __repr__(self):
+        return f"DeviceObjectRef({self.id.hex()})"
+
+
 def _rebuild_object_ref(id_bytes, owner_wire, ref_cls=None):
     owner = Address.from_wire(owner_wire) if owner_wire else None
     ref = (ref_cls or ObjectRef)(ObjectID(id_bytes), owner, _register=False)
@@ -192,13 +205,7 @@ _OPTION_DEFAULTS = {
 
 
 def _check_transport(tt) -> None:
-    if tt == "device":
-        raise NotImplementedError(
-            "tensor_transport='device' needs the device object plane "
-            "(ROADMAP A9: the reference's _private/device_objects.py), which "
-            "ray_tpu_torch does not have yet; use the default object store "
-            "transport, which moves a CUDA tensor through host memory")
-    if tt not in (None, "object_store"):
+    if tt not in (None, "object_store", "device"):
         raise ValueError("tensor_transport must be None, 'object_store', "
                          "or 'device'")
 
@@ -316,6 +323,7 @@ class RemoteFunction:
         (strategy, pg_id, bundle_index), resources = cached
         task_id = cw.next_task_id()
         streaming = self._opts["num_returns"] in ("streaming", "dynamic")
+        transport = self._opts["tensor_transport"]
         spec = TaskSpec(
             task_id=task_id.hex(),
             job_id=cw.job_id,
@@ -337,6 +345,7 @@ class RemoteFunction:
             placement_group=pg_id,
             pg_bundle_index=bundle_index,
             runtime_env=_effective_runtime_env(self._opts["runtime_env"]),
+            tensor_transport=transport if transport == "device" else "",
         )
         submit = cw.submit_streaming_task if streaming else cw.submit_task
         if tracing.enabled():
@@ -347,7 +356,8 @@ class RemoteFunction:
             out = submit(spec, nested_args=nested, task_id=task_id)
         if streaming:
             return ObjectRefGenerator(spec.task_id, cw.address, out)
-        refs = [ObjectRef(oid, cw.address) for oid in out]
+        ref_cls = DeviceObjectRef if transport == "device" else ObjectRef
+        refs = [ref_cls(oid, cw.address) for oid in out]
         if self._opts["num_returns"] == 1:
             return refs[0]
         return refs
@@ -515,6 +525,8 @@ class ActorHandle:
             max_retries=0,
             owner=cw.address.to_wire(),
             actor_id=self._actor_id.hex(),
+            tensor_transport=("device" if tensor_transport == "device"
+                              else ""),
         )
         with tracing.submit_span(spec.name, spec.task_id) as trace_ctx:
             spec.trace_ctx = trace_ctx
@@ -523,7 +535,9 @@ class ActorHandle:
                                        nested_args=nested)
         if streaming:
             return ObjectRefGenerator(spec.task_id, cw.address, out)
-        refs = [ObjectRef(oid, cw.address) for oid in out]
+        ref_cls = (DeviceObjectRef if tensor_transport == "device"
+                   else ObjectRef)
+        refs = [ref_cls(oid, cw.address) for oid in out]
         return refs[0] if num_returns == 1 else refs
 
     def __reduce__(self):

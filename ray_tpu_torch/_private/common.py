@@ -334,9 +334,9 @@ class TaskSpec:
     # Actor creation only: how many tasks may execute concurrently on the
     # actor (reference: max_concurrency / async actors, fiber.h).
     max_concurrency: int = 1
-    # "device" in the reference: returned arrays stay pinned on the
-    # executing worker's device and only a descriptor travels; the port
-    # refuses it until its device object plane exists (ROADMAP A9).
+    # "device": returned tensors stay pinned in the executing worker
+    # (device object plane, _private/device_objects.py); only a small
+    # descriptor travels the object path.
     tensor_transport: str = ""
 
     def to_wire(self):

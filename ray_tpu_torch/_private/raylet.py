@@ -458,6 +458,7 @@ class Raylet:
             "ListLogs": self.handle_list_logs,
             "TailLog": self.handle_tail_log,
             "WorkerStats": self.handle_worker_stats,
+            "NodeDeviceObjects": self.handle_node_device_objects,
         }
 
     # ---------- idle pool ----------
@@ -1317,6 +1318,27 @@ class Raylet:
         except (OSError, IndexError, ValueError):
             return {}
 
+    async def handle_node_device_objects(self, conn, payload):
+        """Device object plane stats from every live worker on this node
+        (pinned bytes/objects and per-route counters per registry; see
+        _private/device_objects.py)."""
+        live = [w for w in self.workers.values()
+                if not w.dead and w.conn is not None and not w.conn.closed]
+
+        async def stats_one(w):
+            try:
+                out = await w.conn.call(
+                    "DeviceObjectStats",
+                    {"entries": bool(payload.get("entries"))}, timeout=10)
+                out.setdefault("worker_id", w.worker_id)
+                return out
+            except Exception as e:
+                return {"worker_id": w.worker_id,
+                        "error": f"{type(e).__name__}: {e}"}
+
+        stats = list(await asyncio.gather(*(stats_one(w) for w in live)))
+        return {"node_id": self.node_id, "workers": stats}
+
     async def handle_worker_stats(self, conn, payload):
         workers = []
         for w in list(self.workers.values()):
@@ -1738,6 +1760,22 @@ class Raylet:
         actor_id = payload["actor_id"]
         for w in list(self.workers.values()):
             if w.actor_id == actor_id:
+                if self.draining and w.conn is not None \
+                        and not w.conn.closed:
+                    # Drain-migration kill: this worker's pins must
+                    # re-home NOW: the pipeline's own device phase
+                    # (_run_drain step 3) runs later and would find the
+                    # process already dead.
+                    try:
+                        out = await w.conn.call(
+                            "DeviceObjectEvacuate", {},
+                            timeout=min(30.0,
+                                        self.drain_deadline_s or 30.0))
+                        self._note_device_evac(out)
+                    except Exception:
+                        logger.warning("pre-kill device evacuation of "
+                                       "actor %s failed", actor_id[:8],
+                                       exc_info=True)
                 self._release_lease_resources(w)
                 self._kill_worker(w)
                 self._pump_pending_leases()
@@ -2135,14 +2173,13 @@ class Raylet:
            them retryable when no peer fits),
         2. wait for running leases to finish — reserving a slice of the
            deadline for data evacuation,
-        3. kill overdue leased workers (their owners retry elsewhere —
+        3. re-home every worker's device-pinned tensors to their ref
+           owners (device_objects.evacuate), before any worker is killed,
+        4. kill overdue leased workers (their owners retry elsewhere —
            retryable, not infeasible),
-        4. push the store's primary object copies to peers and record
+        5. push the store's primary object copies to peers and record
            the relocations,
-        5. report DrainComplete{stats, relocations} to the GCS.
-
-        The reference evacuates device-pinned objects between 2 and 3;
-        the port has no device object plane yet (ROADMAP A9).
+        6. report DrainComplete{stats, relocations} to the GCS.
 
         Actor migration runs concurrently on the GCS side
         (gcs._migrate_actors_off), started by the same DrainNode."""
@@ -2213,7 +2250,30 @@ class Raylet:
                 await asyncio.sleep(0.05)
             stats["lease_wait_s"] = round(time.monotonic() - t0, 3)
 
-            # -- 3. overdue running leases: fail retryable -----------
+            # -- 3. device objects (before any worker is killed) -----
+            # Accumulated, not assigned: drain-migration kills
+            # (handle_kill_actor_worker) may have evacuated some
+            # workers' pins already.
+            for w in list(self.workers.values()):
+                if w.dead or w.conn is None or w.conn.closed:
+                    continue
+                try:
+                    out = await w.conn.call(
+                        "DeviceObjectEvacuate", {},
+                        timeout=max(2.0, self._drain_deadline_mono
+                                    - time.monotonic()))
+                except Exception as e:
+                    logger.warning("device evacuation on worker %s "
+                                   "failed: %s", w.worker_id[:8], e)
+                    continue
+                self._note_device_evac(out)
+            for key in ("evacuated_device_objects",
+                        "evacuated_device_bytes",
+                        "skipped_device_objects"):
+                stats.setdefault(key, 0)
+            stats.setdefault("device_routes", {})
+
+            # -- 4. overdue running leases: fail retryable -----------
             killed = 0
             for w in running_leases():
                 await self._on_worker_death(
@@ -2223,7 +2283,7 @@ class Raylet:
                 killed += 1
             stats["killed_leases"] = killed
 
-            # -- 4. primary object copies → peers --------------------
+            # -- 5. primary object copies → peers --------------------
             relocations, evac_objects, evac_bytes, left = \
                 await self._evacuate_objects()
             stats["evacuated_objects"] = evac_objects
@@ -2235,7 +2295,7 @@ class Raylet:
             relocations = {}
         stats["duration_s"] = round(time.monotonic() - t0, 3)
 
-        # -- 5. DrainComplete ------------------------------------
+        # -- 6. DrainComplete ------------------------------------
         for _attempt in range(3):
             try:
                 await self.gcs_conn.call(
@@ -2255,6 +2315,23 @@ class Raylet:
         logger.info("node %s drain complete in %.2fs: %s",
                     self.node_id[:8], stats["duration_s"], stats)
         self._drain_done.set()
+
+    def _note_device_evac(self, out: dict) -> None:
+        """Fold one worker's DeviceObjectEvacuate report into the drain
+        stats (called from the pipeline's device phase AND from
+        drain-migration actor kills, which evacuate early)."""
+        s = self._drain_stats
+        s["evacuated_device_objects"] = \
+            s.get("evacuated_device_objects", 0) \
+            + out.get("evacuated_objects", 0)
+        s["evacuated_device_bytes"] = \
+            s.get("evacuated_device_bytes", 0) \
+            + out.get("evacuated_bytes", 0)
+        s["skipped_device_objects"] = \
+            s.get("skipped_device_objects", 0) + out.get("skipped", 0)
+        routes = s.setdefault("device_routes", {})
+        for route, n in (out.get("routes") or {}).items():
+            routes[route] = routes.get(route, 0) + n
 
     async def _evacuate_objects(self):
         """Push every sealed (or spilled) local object to an alive peer

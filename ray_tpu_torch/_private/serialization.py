@@ -29,6 +29,9 @@ KIND_PYTHON = 0
 KIND_EXCEPTION = 1
 KIND_RAW = 2
 KIND_ACTOR_HANDLE = 3
+# Payload contains DeviceObjectStub placeholders for pinned tensors
+# (see _private/device_objects.py); get() resolves them after deserialize.
+KIND_DEVICE = 4
 
 _ALIGN = 64
 

@@ -116,7 +116,7 @@ _HAS_PEP688 = _pep688_supported()
 class _OwnedObject:
     __slots__ = ("state", "inline", "locations", "lineage_task", "error",
                  "ready_event", "local_refs", "submitted_refs", "size",
-                 "borrowers")
+                 "borrowers", "device")
 
     def __init__(self):
         self.state = OBJ_PENDING
@@ -128,6 +128,10 @@ class _OwnedObject:
         self.local_refs = 0
         self.submitted_refs = 0     # pending tasks that take this as an arg
         self.size = 0
+        # Device object plane (device_objects.py): [pin_worker_addr_wire,
+        # key_prefix, pinned_bytes, n_leaves] when this object's payload
+        # is pinned on a worker; freeing the object unpins it.
+        self.device = None
         # Borrower protocol (reference: reference_count.cc): worker_ids of
         # remote processes known to hold a reference. A non-empty set
         # blocks freeing; the owner's WaitForRefRemoved watches remove
@@ -433,6 +437,11 @@ class CoreWorker:
             "BorrowRef": self._handle_borrow_ref,
             "WaitForRefRemoved": self._handle_wait_for_ref_removed,
             "SetLeaseDevices": self._handle_set_lease_devices,
+            "DeviceObjectPull": self._handle_device_object_pull,
+            "DeviceObjectRelease": self._handle_device_object_release,
+            "DeviceObjectStats": self._handle_device_object_stats,
+            "DeviceObjectEvacuate": self._handle_device_object_evacuate,
+            "DeviceObjectRepin": self._handle_device_object_repin,
             "DrainNotice": self._handle_drain_notice,
             "Ping": lambda conn, p: {"ok": True},
             "DumpStack": self._handle_dump_stack,
@@ -890,6 +899,11 @@ class CoreWorker:
                         pin[0].release(oid)
                         pin = None
                 self._register_new_borrows(dsink)
+                if kind == serialization.KIND_DEVICE:
+                    # Pinned payload: the stored value is only a
+                    # descriptor; swap in the tensors (identity in
+                    # process; IPC, NCCL or host transfer otherwise).
+                    value = self._resolve_device_value(oid, _owner, value)
                 if kind == serialization.KIND_EXCEPTION:
                     cause, tb = value
                     if isinstance(cause, exc.RayTpuError):
@@ -1573,6 +1587,10 @@ class CoreWorker:
                         o.lineage_task, 0)
         # Refs embedded in this container's payload lose their hold.
         self._release_container(oid_hex)
+        if o.device:
+            # Last reference gone: the pinned tensors on the producing
+            # worker are released too.
+            self._spawn(self._release_device_object(o.device))
 
     # ---------- runtime env provisioning ----------
 
@@ -2359,6 +2377,10 @@ class CoreWorker:
         # this return object lives.
         if len(result) > 3 and result[3]:
             self._track_container(oid_hex, [tuple(n) for n in result[3]])
+        # Device-plane descriptor: the payload is only a stub; the
+        # tensors stay pinned in the executing worker until this object
+        # frees (see _free_object).
+        o.device = result[4] if len(result) > 4 and result[4] else None
         if o.ready_event:
             o.ready_event.set()
 
@@ -2522,6 +2544,133 @@ class CoreWorker:
                     "data": o.inline[1], "nested": nested_wire}
         return {"status": "stored", "locations": sorted(o.locations),
                 "nested": nested_wire}
+
+    # ---------- device object plane (device_objects.py) ----------
+
+    async def _handle_device_object_pull(self, conn, payload):
+        from ray_tpu_torch._private import device_objects
+
+        return await device_objects.handle_pull(self, payload)
+
+    async def _handle_device_object_release(self, conn, payload):
+        from ray_tpu_torch._private import device_objects
+
+        return await device_objects.handle_release(self, payload)
+
+    async def _handle_device_object_stats(self, conn, payload):
+        from ray_tpu_torch._private import device_objects
+
+        return await device_objects.handle_stats(self, payload)
+
+    async def _handle_device_object_evacuate(self, conn, payload):
+        """Drain path: the raylet asks this worker to re-home its pinned
+        tensors before the node dies (see device_objects.evacuate)."""
+        from ray_tpu_torch._private import device_objects
+
+        return await device_objects.evacuate(self)
+
+    async def _handle_device_object_repin(self, conn, payload):
+        """Drain path, ref-owner side: accept evacuated tensors and pin
+        them locally under their original keys."""
+        from ray_tpu_torch._private import device_objects
+
+        return await device_objects.handle_repin(self, payload)
+
+    def _repoint_device_pin(self, prefix: str, addr_wire) -> None:
+        """Loop-side: after a drain evacuation re-pinned a device
+        object's arrays in THIS process, repoint the owned object's pin
+        address (o.device) and rewrite an inline descriptor payload so
+        future fetches hand consumers live stub addresses (a sealed
+        store-resident payload cannot be rewritten; owner-side gets
+        still recover via the refreshed o.device)."""
+        from ray_tpu_torch._private import device_objects
+
+        for o in self.objects.values():
+            if not o.device or o.device[1] != prefix:
+                continue
+            o.device[0] = addr_wire
+            if o.inline is not None:
+                try:
+                    kind, value = serialization.deserialize(*o.inline)
+                    if kind == serialization.KIND_DEVICE:
+                        sobj = serialization.serialize(
+                            device_objects.retarget_stubs(value, addr_wire),
+                            kind=serialization.KIND_DEVICE)
+                        o.inline = (sobj.meta, sobj.to_bytes())
+                except Exception:
+                    logger.exception("device descriptor rewrite failed")
+            break
+
+    def _set_device_info(self, oid_hex: str, dev_info: list) -> None:
+        """Loop-side: attach device-plane pin info to an owned object
+        (device_objects.device_put posts this after storing the stub)."""
+        o = self.objects.get(oid_hex)
+        if o is not None:
+            o.device = dev_info
+
+    async def _release_device_object(self, dev_info: list) -> None:
+        """Unpin a freed device object's tensors on its pinning worker."""
+        addr_wire, prefix = dev_info[0], dev_info[1]
+        try:
+            from ray_tpu_torch._private import device_objects
+
+            if addr_wire is None or addr_wire[2] == self.worker_id:
+                device_objects.registry().release_prefix(prefix)
+                return
+            conn = await self._owner_conn(Address.from_wire(addr_wire))
+            await conn.notify("DeviceObjectRelease", {"prefix": prefix})
+        except Exception:
+            pass  # pin worker already dead: nothing left to unpin
+
+    def _resolve_device_value(self, oid: ObjectID, owner, value):
+        """Swap DeviceObjectStubs for tensors. A gone pin (worker
+        died) reports the object lost; when WE own the object the
+        existing lineage reconstruction re-executes the creating task
+        (which re-pins fresh tensors) and resolution retries against the
+        refreshed descriptor — the device-plane twin of the store-copy
+        recovery path in _fetch_object."""
+        from ray_tpu_torch._private import device_objects
+
+        oid_hex0 = oid.hex()
+        o0 = self.objects.get(oid_hex0)
+        if o0 is not None and o0.device and o0.device[0]:
+            # The owner's pin record is authoritative: a drain
+            # evacuation (or reconstruction) may have re-homed the pins
+            # since the descriptor bytes were sealed — resolve against
+            # the live address, not the payload's.
+            value = device_objects.retarget_stubs(value, o0.device[0])
+        try:
+            return device_objects.resolve_value(value, self)
+        except exc.DeviceObjectLostError:
+            device_objects.note_lost()
+            oid_hex = oid.hex()
+            o = self.objects.get(oid_hex)
+            owned = owner is None or owner.worker_id == self.worker_id
+            if o is None or not o.lineage_task or not owned:
+                raise
+            recovered = self._run(self._try_reconstruct(oid_hex))
+            if not recovered:
+                raise
+            # Re-fetch the REFRESHED descriptor through the normal path
+            # (covers both inline and store-resident stub payloads; a
+            # descriptor over max_inline_object_size lives in shm).
+            meta, data, pin = self._run(
+                self._fetch_object(oid, owner,
+                                   self.config.rpc_call_timeout_s))
+            data_b = bytes(data)
+            if pin is not None:
+                pin[0].release(oid)
+            kind, fresh = serialization.deserialize(meta, data_b)
+            if kind != serialization.KIND_DEVICE:
+                return fresh
+            # A store-resident payload may still be the pre-death copy
+            # (sealed objects are not rewritten): the refreshed o.device
+            # knows where the re-executed task pinned; same keys, new
+            # worker.
+            o = self.objects.get(oid_hex)
+            if o is not None and o.device and o.device[0]:
+                fresh = device_objects.retarget_stubs(fresh, o.device[0])
+            return device_objects.resolve_value(fresh, self)
 
     # ---------- execution (worker side) ----------
 
@@ -2953,6 +3102,11 @@ class CoreWorker:
 
         caller, max_inline = ctx if ctx is not None \
             else self._task_packaging_ctx(spec)
+        if getattr(spec, "tensor_transport", "") == "device":
+            packaged = self._package_device_return(spec, index, value)
+            if packaged is not None:
+                return packaged
+            # No tensor leaves in this return: normal host path.
         # Mirror of the submit-side primitive fast path: ref-free
         # builtin returns skip the collector + SerializedObject.
         if type(value) in _PRIMITIVE_TYPES and not (
@@ -2978,6 +3132,45 @@ class CoreWorker:
                                        index + 1)
         self._run(self._write_to_store_safe(oid, sobj))
         return ["s", self.node_id, sobj.total_size, nested]
+
+    def _package_device_return(self, spec: TaskSpec, index: int, value):
+        """tensor_transport="device" packaging: pin every tensor leaf
+        of the return value in this process's device registry and ship
+        only a stub payload (serialization.KIND_DEVICE) plus the pin
+        descriptor; the tensor bytes stay where they are. Returns None
+        when the value has no tensor leaves (host path applies).
+
+        ObjectRefs embedded beside the arrays get the same borrower
+        handoff as _package_one: the caller is registered with each
+        owner BEFORE this worker's own holds can release."""
+        from ray_tpu_torch._private import device_objects
+        from ray_tpu_torch._private.api_internal import collect_nested_refs
+
+        prefix = f"{spec.task_id}:{index + 1}"
+        stubbed, dev_bytes, n_leaves = device_objects.extract_arrays(
+            value, prefix, self)
+        if not n_leaves:
+            return None
+        # The submitting caller owns the return ref: record it with the
+        # pins so a drain evacuation knows where to re-home the arrays.
+        device_objects.registry().note_ref_owner(prefix, spec.owner)
+        with collect_nested_refs() as sink:
+            sobj = serialization.serialize(stubbed,
+                                           kind=serialization.KIND_DEVICE)
+        caller = Address.from_wire(spec.owner).worker_id if spec.owner \
+            else ""
+        if sink and caller:
+            for oid_hex, owner_wire in sink:
+                self._run(self._forward_borrow(oid_hex, owner_wire,
+                                               caller, spec.owner))
+        nested = [[oid_hex, owner_wire] for oid_hex, owner_wire in sink]
+        dev_info = [self.address.to_wire(), prefix, dev_bytes, n_leaves]
+        if sobj.total_size <= self.config.max_inline_object_size:
+            return ["v", sobj.meta, sobj.to_bytes(), nested, dev_info]
+        oid = ObjectID.for_task_return(TaskID.from_hex(spec.task_id),
+                                       index + 1)
+        self._run(self._write_to_store_safe(oid, sobj))
+        return ["s", self.node_id, sobj.total_size, nested, dev_info]
 
     def _package_results(self, spec: TaskSpec, result) -> list:
         if spec.num_returns == 0:

@@ -187,7 +187,11 @@ def test_import_loads_no_jax_and_no_cuda():
         "ray_tpu_torch._private.raylet, ray_tpu_torch._private.worker, "
         "ray_tpu_torch._private.worker_zygote, ray_tpu_torch._private.node, "
         "ray_tpu_torch.util.placement_group, "
-        "ray_tpu_torch.util.scheduling_strategies\n"
+        "ray_tpu_torch.util.scheduling_strategies, "
+        "ray_tpu_torch.util.collective, ray_tpu_torch._private.device_objects, "
+        "ray_tpu_torch.data, ray_tpu_torch.train, ray_tpu_torch.train.torch, "
+        "ray_tpu_torch.train.trainer, ray_tpu_torch.train.worker_group, "
+        "ray_tpu_torch.train.session, ray_tpu_torch.train.config\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                  'orbax', 'ray_tpu', 'msgpack',\n"
@@ -237,6 +241,14 @@ def test_entry_points_raise_without_a_card():
         MARWIL(MARWILConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         BCConfig().build()
+    from ray_tpu_torch import data
+    from ray_tpu_torch.util.collective import init_collective_group
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(data.range(4).iter_device_batches(batch_size=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_collective_group(1, 0, backend="nccl", group_name="card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_collective_group(1, 0, backend="xla", group_name="card")
 
 
 def test_cuda_wrappers_refuse_other_devices():

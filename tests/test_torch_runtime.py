@@ -16,7 +16,8 @@ the raylet and pin CUDA_VISIBLE_DEVICES, and nothing touches CUDA.
   cloudpickle (the workers report sys.modules, the GCS and raylet their
   loaded packages through their state calls); the runtime runs with
   msgpack and cloudpickle made unimportable.
-- tensor_transport="device" raises, naming the device plane's item.
+- tensor_transport="device" is taken (the device plane's own tests are
+  tests/test_torch_device_plane.py).
 """
 
 import os
@@ -298,20 +299,34 @@ def test_gpu_lease_without_a_card_never_runs_on_the_cpu(port_rt):
 
 
 def test_device_transport_waits_for_the_device_plane(port_rt):
+    """tensor_transport="device" is taken on tasks and actor methods (the
+    device plane's own tests are tests/test_torch_device_plane.py): a
+    tensor return comes back as a DeviceObjectRef, and a return with no
+    tensor takes the host path."""
     @port_rt.remote
-    def f():
-        return 1
+    def f(n):
+        import torch
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        f.options(tensor_transport="device")
+        return torch.arange(n) if n else "none"
+
+    ref = f.options(tensor_transport="device").remote(3)
+    assert type(ref).__name__ == "DeviceObjectRef"
+    assert port_rt.get(ref).tolist() == [0, 1, 2]
+    assert port_rt.get(f.options(tensor_transport="device").remote(0)) \
+        == "none"
 
     @port_rt.remote
     class A:
         def g(self):
-            return 1
+            import torch
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        A.options(tensor_transport="device")
+            return {"t": torch.ones(2)}
+
+    a = A.options(tensor_transport="device").remote()
+    assert port_rt.get(a.g.remote())["t"].tolist() == [1.0, 1.0]
+    port_rt.kill(a)
+    with pytest.raises(ValueError, match="tensor_transport"):
+        f.options(tensor_transport="nvlink")
 
 
 # ---- tensors through the store ----
