@@ -201,7 +201,7 @@ Phases, in order; a failure in any of them ends the run with an error:
              serve.shutdown() and ray_tpu_torch.shutdown() no process of
              the phase's cluster (its GCS, raylet and every process under
              them) is left and the card's free memory is back.
-16. gang training - run last, on ray_tpu_torch.init()'s defaults again.
+16. gang training - on ray_tpu_torch.init()'s defaults again.
              A num_gpus=0.25 actor forms an NCCL group of one and runs
              allreduce (sum, product, min, max), allgather,
              reducescatter (7 rows), broadcast and barrier on seeded
@@ -227,6 +227,50 @@ Phases, in order; a failure in any of them ends the run with an error:
              beside the training phase's. After the shutdown no process
              of the phase's cluster is left and the card's memory is
              back.
+17. disaggregated serving - run after 16, on a cluster_utils.Cluster:
+             the head node holds the driver (the router) and the
+             prefill replica, two nodes with a `decode` resource a
+             decode replica each, every node the one card.
+             serve.deploy_disagg at LLAMA3_8B (bf16, seed 0, each replica
+             building the weights on half of its node's card;
+             page_size=64, max_batch=8, max_len=512, decode_chunk=8).
+             Round A: phase 4's 9 payloads together through
+             DisaggHandle.stream, every greedy stream phase 15's
+             Generator tokens (a divergence only at a near-tie, judged
+             by a decode replica's dense oracle: the driver keeps no
+             weights); the first prompt again, a prefix-cache hit; the
+             decode side's KV hand-offs by the ipc route only; K3's
+             launches in the decode replicas' graphs at least n_layers x
+             their decode steps; tokens/s and TTFT beside phases 15 and
+             4, the prefill's ms a prompt, the hand-offs' ms and GB/s.
+             Round B: two greedy streams on 4-token buffers, 3 tokens
+             read of each, the decode node holding a stream preempted
+             (NodePreempter, deadline 10 s: DRAINED, then killed);
+             every token once and the Generator's, a resume from the
+             drain's evacuation (evac_resumes, the driver's
+             evacuated_in); the seconds from the drain to the next
+             token. No process of the phase left, memory back.
+18. elastic gang - run last, on a cluster_utils.Cluster whose gang
+             nodes carry a `trainer` resource (two, then a third):
+             TorchTrainer(num_workers=2, use_gpu=True,
+             elastic=ElasticConfig(min_workers=1, max_workers=2)) on
+             gloo (two NCCL ranks cannot share a card) trains
+             CKPT_CFG (0.40B) from the driver's seed-0 weights, every
+             rank on the training batch. After step 3 rank 1's node is
+             drained without a kill (the gang shrinks to 1), then
+             removed and a node added (the gang grows back to 2, the
+             new rank seeded from rank 0 by the device plane); steps
+             4-7 run on 1 rank, 8-11 on 2. The 12 losses bitwise an
+             uninterrupted in-process run's; every start state (the
+             survivor's, the departed rank's tree, the grown rank's)
+             the kept state of its step by per-tensor checksums;
+             shrinks 1, grows 1, no fallback, no restart, no
+             checkpoint; K1 and K1-bwd once a layer a step in every
+             worker. Prints ms a step on 2 ranks and on 1, the seconds
+             from the drain to the smaller gang's first step and from
+             the new node to the grown gang's, and each hand-off's bytes
+             and route. No process left, memory back. Neither phase's
+             processes load jax, ray_tpu, msgpack or cloudpickle.
 
 Prints the kernels as one JSON line (a paged kernel's `launches` from
 the serving phase, graph replays included; a flash kernel's from the
@@ -235,9 +279,10 @@ training phase, `sharded_launches` from the sharded one,
 from phase 9's sharded steps, `dit_launches` from DiT-XL/2's timed
 steps, `dit_sample_launches` from the sampler's run and
 `checkpoint_launches` from phase 13's run A, `gang_launches` from
-phase 16's gang worker; a paged kernel's
-`disagg_launches` from phase 12's hand-offs and `runtime_launches` from
-phase 15's replica; a flash kernel's `dit_shape`
+phase 16's gang worker, `elastic_launches` from phase 18's workers; a
+paged kernel's `disagg_launches` from phase 12's hand-offs,
+`runtime_launches` from phase 15's replica and `disagg_serve_launches`
+from phase 17's decode replicas; a flash kernel's `dit_shape`
 the times at DiT-XL/2's attention, B 32, H 16, S 256, D 72, non-causal),
 the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -287,7 +332,8 @@ from ray_tpu_torch.parallel import (TRANSFORMER_RULES, MeshConfig, P,
 from ray_tpu_torch.rllib import (BCConfig, CartPole, MARWILConfig, PPOConfig,
                                  PPOLearner, get_model, write_offline_json)
 from ray_tpu_torch.serve.llm import LLMEngine, LLMServer, _Prefilled
-from ray_tpu_torch.serve.llm_disagg import (PrefillEngine, PrefixCache,
+from ray_tpu_torch.serve.llm_disagg import (DecodeServer, PrefillEngine,
+                                            PrefillServer, PrefixCache,
                                             disagg_counts)
 from ray_tpu_torch.train import (adamw, init_sharded_state, init_train_state,
                                  make_train_step, shard_train_step)
@@ -565,14 +611,17 @@ def hold_greedy(what: str, model, cfg, prompt, toks, want, tie: float,
     """`toks` must equal `want`, or first diverge from it at a near-tie:
     the oracle's top-2 gap there below `tie`, for bf16 `tie` times the top
     logit's size (at least 1). The first `replayed` tokens must be equal
-    whatever the gap."""
+    whatever the gap. `model` is the dense oracle, or a function of the
+    tokens giving (gap, top) where the weights live in another process."""
     if toks == want:
         return
     n = min(len(toks), len(want))
     j = next((i for i, (a, b) in enumerate(zip(toks, want)) if a != b), n)
     if j == n or j < replayed:
         raise AssertionError(f"{what}: {toks} != {want}")
-    gap, top = top2(model, cfg, prompt + want[:j])
+    gap, top = (top2(model, cfg, prompt + want[:j])
+                if isinstance(model, torch.nn.Module)
+                else model(prompt + want[:j]))
     limit = tie * (max(abs(top), 1.0) if cfg.dtype == torch.bfloat16 else 1)
     log(f"{what}: prompt of {len(prompt)} diverges at token {j}, top-2 gap "
         f"{gap:.3g} (limit {limit:.3g})")
@@ -1061,11 +1110,11 @@ def llama_loss(model, batch):
     return cross_entropy_loss(model(inp), tgt)
 
 
-def train_batch(cfg, seed: int = 0):
+def train_batch(cfg, seed: int = 0, device="cuda"):
     """(inputs, targets) from default_rng(seed), as bench.py draws them."""
     rng = np.random.default_rng(seed)
     data = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                         (TRAIN_B, TRAIN_S + 1))).to("cuda")
+                                         (TRAIN_B, TRAIN_S + 1))).to(device)
     return data[:, :-1], data[:, 1:]
 
 
@@ -2174,6 +2223,9 @@ def rl_phase(card: str) -> None:
 # ---------------------------------------------------------------------------
 # Phase 15: runtime serving (the port's own runtime, Serve and its proxy)
 
+# Phase 15's Generator tokens for phase 4's greedy payloads and the
+# serving figures of phases 4 and 15, kept for phase 17.
+SERVED: dict = {}
 RUNTIME_BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "ray_tpu",
                   "msgpack", "cloudpickle")
 RUNTIME_TENSOR_MIB = 64
@@ -2275,11 +2327,10 @@ def _proc_start(pid: int):
     return None if fields[0] == "Z" else int(fields[19])
 
 
-def cluster_processes(rt) -> dict:
-    """{pid: start time} of the cluster this process started: its GCS,
-    its raylets and every process under them (zygotes, workers, the
-    replica and the proxy)."""
-    node = rt._runtime_node
+def cluster_processes(node) -> dict:
+    """{pid: start time} of a cluster's processes (`node`: the
+    RuntimeNode that started it): its GCS, its raylets and every process
+    under them (zygotes, workers, replicas and proxies)."""
     roots = [node.gcs_proc.pid, *(n.proc.pid for n in node.nodes)]
     children: dict = {}
     for pid in filter(str.isdigit, os.listdir("/proc")):
@@ -2520,35 +2571,19 @@ def runtime_phase(card: str, phase4: dict) -> dict:
         tensors = runtime_tensor_checks(rt)
         run = runtime_serving(rt, serve, wants, oracle)
     finally:
-        procs = cluster_processes(rt)
+        procs = cluster_processes(rt._runtime_node)
         t_down = time.perf_counter()
         serve.shutdown()
         rt.shutdown()
-    deadline = time.time() + 60
-    while still_running(procs) and time.time() < deadline:
-        time.sleep(0.05)
-    left = still_running(procs)
-    down_s = time.perf_counter() - t_down
-    gc.collect()
-    torch.cuda.empty_cache()
-    free1 = torch.cuda.mem_get_info()[0]
-    while free0 - free1 > 64 << 20 and time.time() < deadline:
-        time.sleep(0.2)
-        free1 = torch.cuda.mem_get_info()[0]
+    down = cluster_left("runtime", procs, free0, t_down)
     phase4 = {k: phase4.get(k) for k in (
         "tokens_per_s", "ttft_p50_ms", "ttft_max_ms", "wall_s")}
+    SERVED.update(greedy=wants, phase4=phase4, runtime={
+        k: run[k] for k in ("tokens_per_s", "ttft_p50_ms", "ttft_max_ms",
+                            "wall_s")})
     log("runtime serving: " + json.dumps({
-        "card": card, "init_s": init_s, **start, **tensors, **run,
-        "cluster_processes": len(procs), "shutdown_s": down_s,
-        "free_gib_before": free0 / 2**30, "free_gib_after": free1 / 2**30,
+        "card": card, "init_s": init_s, **start, **tensors, **run, **down,
         "phase4_in_process": phase4}))
-    if left:
-        raise AssertionError(f"runtime: processes left after shutdown: "
-                             f"{left}")
-    if free0 - free1 > 64 << 20:
-        raise AssertionError(f"runtime: card memory free {free1 / 2**30:.3f}"
-                             f" GiB after the phase, {free0 / 2**30:.3f} "
-                             "GiB before")
     return run["launches"]
 
 
@@ -2843,9 +2878,18 @@ def gang_phase(card: str) -> dict:
             "card": card, "init_s": init_s, "collectives": coll, **plane}))
         run = gang_training(rt, card)
     finally:
-        procs = cluster_processes(rt)
+        procs = cluster_processes(rt._runtime_node)
         t_down = time.perf_counter()
         rt.shutdown()
+    log("gang shutdown: " + json.dumps(
+        cluster_left("gang", procs, free0, t_down)))
+    return run["launches"]
+
+
+def cluster_left(what: str, procs: dict, free0: int, t_down: float) -> dict:
+    """After a phase's shutdown: no process of its cluster left and the
+    card's free memory back (64 MiB of slack), each waited for up to a
+    minute. Returns the figures; raises otherwise."""
     deadline = time.time() + 60
     while still_running(procs) and time.time() < deadline:
         time.sleep(0.05)
@@ -2857,16 +2901,616 @@ def gang_phase(card: str) -> dict:
     while free0 - free1 > 64 << 20 and time.time() < deadline:
         time.sleep(0.2)
         free1 = torch.cuda.mem_get_info()[0]
-    log("gang shutdown: " + json.dumps({
-        "cluster_processes": len(procs), "shutdown_s": down_s,
-        "free_gib_before": free0 / 2**30, "free_gib_after": free1 / 2**30}))
+    out = {"cluster_processes": len(procs), "shutdown_s": down_s,
+           "free_gib_before": free0 / 2**30, "free_gib_after": free1 / 2**30}
     if left:
-        raise AssertionError(f"gang: processes left after shutdown: {left}")
+        raise AssertionError(f"{what}: processes left after shutdown: {left}")
     if free0 - free1 > 64 << 20:
-        raise AssertionError(f"gang: card memory free {free1 / 2**30:.3f} "
+        raise AssertionError(f"{what}: card memory free {free1 / 2**30:.3f} "
                              f"GiB after the phase, {free0 / 2**30:.3f} GiB "
                              "before")
-    return run["launches"]
+    return out
+
+
+def daemons_banned(cluster) -> dict:
+    """The packages of RUNTIME_BANNED loaded by a cluster's GCS and each
+    of its raylets."""
+    from ray_tpu_torch._private import rpc
+    from ray_tpu_torch._private.api_internal import get_core_worker
+
+    cw = get_core_worker()
+    out = {"gcs": cw._run(cw.gcs.call("GetClusterStatus", {}))[
+        "loaded_packages"]}
+
+    async def raylet_state(host, port):
+        conn = await rpc.dial(host, port, name="smoke")
+        try:
+            return await conn.call("GetState", {}, timeout=30)
+        finally:
+            await conn.close()
+
+    for n in cluster.nodes:
+        out[f"raylet {n.node_id[:8]}"] = cw._run(
+            raylet_state(n.host, n.port))["loaded_packages"]
+    return {k: sorted(set(v) & set(RUNTIME_BANNED)) for k, v in out.items()}
+
+
+# Phase 17: LLAMA3_8B in three replicas (a prefill pool of one, a decode
+# pool of two), each on half of its node's view of the one card; round
+# B's streams park on 4-token buffers.
+DISAGG_GPU_SHARE = 0.5
+DISAGG_BUFFER = 4
+
+
+class DisaggPrefill(PrefillServer):
+    """Phase 17's prefill replica: PrefillServer on LLAMA3_8B, the seeded
+    weights built on its own card; also reports what it loaded."""
+
+    def banned(self) -> list:
+        return banned_loaded()
+
+
+class DisaggDecode(DecodeServer):
+    """Phase 17's decode replica: DecodeServer on LLAMA3_8B, the seeded
+    weights built on its own card; also reports the engine's counters and
+    the kernels' launches, and the dense-oracle top-2 gap that judges a
+    near-tie (the driver keeps no copy of the weights)."""
+
+    def counters(self, reset: bool = False) -> dict:
+        from ray_tpu_torch._private import device_objects as dobj
+
+        eng = self.engine
+        torch.cuda.synchronize()
+        out = {"decode_steps": eng.decode_steps,
+               "graph_replays": eng.graph_replays,
+               "graph_launches": dict(eng.graph_launches),
+               "eager_launches": dict(pa.launch_counts),
+               "plane": dobj.counters(),
+               "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "device": str(eng.model.embed.weight.device),
+               "banned": banned_loaded()}
+        if reset:
+            pa.reset_launch_counts()
+        return out
+
+    def top2(self, tokens) -> tuple:
+        with torch.no_grad():
+            return top2(self.engine.model, self.cfg, tokens)
+
+
+def replica_call(handle, method: str, *args):
+    """`method` on every replica of a deployment, in replica order."""
+    import ray_tpu_torch as rt
+
+    return rt.get([r.handle_request.remote(method, list(args), {}, "")
+                   for r in handle._get_replicas()], timeout=600)
+
+
+def disagg_stream(h, payload: dict, rec: dict) -> None:
+    toks = []
+    try:
+        for tok in h.stream(payload):
+            if not toks:
+                rec["first"] = time.perf_counter()
+            toks.append(tok)
+    except Exception as e:  # recorded; the phase fails below
+        rec["error"] = e
+    rec["tokens"], rec["end"] = toks, time.perf_counter()
+
+
+def disagg_streams(h, payloads) -> list:
+    """Every payload through DisaggHandle.stream, together, one thread
+    each; one record a payload."""
+    recs = [{"submit": time.perf_counter()} for _ in payloads]
+    threads = [threading.Thread(target=disagg_stream, args=(h, p, r))
+               for p, r in zip(payloads, recs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    return recs
+
+
+def disagg_round_a(h, cfg, wants) -> dict:
+    """Round A: phase 4's 9 payloads together through the router, each
+    greedy stream held against phase 15's Generator tokens; the first
+    prompt again (a prefix-cache hit); the hand-offs by the ipc route;
+    K3's launches in the decode replicas' graphs."""
+    payloads, warm = serving_payloads(cfg)
+    greedy = [p for p in payloads if "temperature" not in p]
+    decode = h._decode
+    for _ in range(4):   # warm-up bursts until both decode graphs exist
+        if any("error" in r for r in disagg_streams(h, warm)):
+            raise AssertionError("disagg serving: the warm-up failed")
+        if all(c["graph_replays"] for c in replica_call(decode, "counters")):
+            break
+    before = replica_call(decode, "counters", True)    # counts set to 0
+    pre0 = replica_call(h._prefill, "report_metrics")[0]
+    start = time.perf_counter()
+    recs = disagg_streams(h, payloads)
+    wall = max(r["end"] for r in recs) - start
+    after = replica_call(decode, "counters")
+    pre1 = replica_call(h._prefill, "report_metrics")[0]
+    for rec, p in zip(recs, payloads):
+        if "error" in rec or len(rec.get("tokens", [])) != \
+                p["max_new_tokens"] or not all(0 <= t < cfg.vocab_size
+                                               for t in rec["tokens"]):
+            raise AssertionError(f"disagg serving: stream of "
+                                 f"{len(p['prompt_tokens'])} tokens: {rec}")
+    gap = lambda toks: replica_call(decode, "top2", toks)[0]  # noqa: E731
+    got = [r["tokens"] for r, p in zip(recs, payloads)
+           if "temperature" not in p]
+    for p, toks, want in zip(greedy, got, wants):
+        hold_greedy("disagg serving", gap, cfg, p["prompt_tokens"], toks,
+                    want, BF16_TIE)
+    again = disagg_streams(h, [greedy[0]])[0]
+    pre2 = replica_call(h._prefill, "report_metrics")[0]
+    if pre2["prefix_cache_hits"] <= pre1["prefix_cache_hits"] or \
+            "error" in again:
+        raise AssertionError(f"disagg serving: the first prompt again: "
+                             f"{again}, cache {pre1} -> {pre2}")
+    hold_greedy("disagg serving, a cache hit", gap, cfg,
+                greedy[0]["prompt_tokens"], again["tokens"], wants[0],
+                BF16_TIE)
+    steps = sum(a["decode_steps"] - b["decode_steps"]
+                for a, b in zip(after, before))
+    replays = [a["graph_replays"] - b["graph_replays"]
+               for a, b in zip(after, before)]
+    launches = {k: sum(a["eager_launches"][k]
+                       + a["graph_launches"].get(k, 0) * n
+                       for a, n in zip(after, replays)) for k in KERNELS}
+    if not steps or launches[ON_PATH] < cfg.n_layers * steps:
+        raise AssertionError(f"disagg serving: {ON_PATH} launched "
+                             f"{launches[ON_PATH]} times for {steps} decode "
+                             f"steps of {cfg.n_layers} layers")
+    plane = {k: sum(a["plane"][k] for a in after)
+             for k in ("ipc", "collective", "host_fallback", "in_process")}
+    if not plane["ipc"] or plane["host_fallback"] or plane["collective"]:
+        raise AssertionError(f"disagg serving: decode-side routes {plane}: "
+                             "expected every KV hand-off by ipc")
+    banned = {f"decode {i}": a["banned"] for i, a in enumerate(after)}
+    banned["prefill"] = replica_call(h._prefill, "banned")[0]
+    if any(banned.values()):
+        raise AssertionError(f"disagg serving: replicas loaded {banned}")
+    metrics = h.pool_metrics()
+    ttft = sorted((r["first"] - r["submit"]) * 1e3 for r in recs)
+    n_tok = sum(len(r["tokens"]) for r in recs)
+    return {"requests": len(recs), "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "ttft_p50_ms": statistics.median(ttft), "ttft_max_ms": ttft[-1],
+            "greedy_equal_to_generator": sum(t == w for t, w in
+                                             zip(got, wants)),
+            "phase15_replica": SERVED.get("runtime"),
+            "phase4_in_process": SERVED.get("phase4"),
+            "prefill_ms_p50": pre1["prefill_ms_p50"],
+            "prefill_served": pre1["served"] - pre0["served"],
+            "prefix_cache": {k: pre2[k] for k in pre2
+                             if k.startswith("prefix_cache_")},
+            "kv_handoff_ms_p50": [m["kv_handoff_ms_p50"]
+                                  for m in metrics["decode"]],
+            "kv_handoff_gb_s": [m["kv_handoff_gb_s"]
+                                for m in metrics["decode"]],
+            "decode_routes": plane, "decode_steps": steps,
+            "graph_replays": replays,
+            "replica_visible": [a["visible"] for a in after],
+            "launches": launches}
+
+
+def disagg_round_b(cluster, h, cfg, decode_nodes, wants) -> dict:
+    """Round B: two greedy streams on DISAGG_BUFFER-token buffers, 3
+    tokens taken of each; the decode node holding a stream preempted
+    (drain to DRAINED, then killed); every token once and the streams
+    phase 15's Generator tokens (a divergence only at a near-tie)."""
+    from ray_tpu_torch._private import device_objects as dobj
+    from ray_tpu_torch.test_utils import NodePreempter
+
+    payloads, _warm = serving_payloads(cfg)
+    greedy = [p for p in payloads if "temperature" not in p][:2]
+    gens = [h.stream({**p, "stream_buffer": DISAGG_BUFFER}) for p in greedy]
+    got = [[next(g) for _ in range(3)] for g in gens]
+    rows = h.pool_metrics()["decode"]
+    holder = next(m for m in rows if m.get("active_streams", 0) > 0)
+    target = next(n for n in decode_nodes if n.node_id == holder["node_id"])
+    gap_replica = next(r for r, m in zip(h._decode._get_replicas(), rows)
+                       if m.get("node_id") != target.node_id)
+    before = dobj.counters()
+    stats0 = dict(h.stats)
+    t_drain = time.perf_counter()
+    res = NodePreempter(cluster, deadline_s=10).preempt(target)
+    preempt_s = time.perf_counter() - t_drain
+    if res.get("state") != "DRAINED":
+        raise AssertionError(f"disagg serving: the decode node's drain "
+                             f"ended {res}")
+    next_token_s = []
+    for i, g in enumerate(gens):
+        for j, tok in enumerate(g):
+            if j == 0:
+                next_token_s.append(time.perf_counter() - t_drain)
+            got[i].append(tok)
+
+    def gap(toks):
+        import ray_tpu_torch as rt
+
+        return rt.get(gap_replica.handle_request.remote(
+            "top2", [toks], {}, ""), timeout=600)
+
+    for p, toks, want in zip(greedy, got, wants):
+        if len(toks) != p["max_new_tokens"]:
+            raise AssertionError(f"disagg serving: {len(toks)} tokens "
+                                 f"across the drain: {toks}")
+        hold_greedy("disagg drain", gap, cfg, p["prompt_tokens"], toks,
+                    want, BF16_TIE)
+    after = dobj.counters()
+    stats = {k: h.stats[k] - stats0[k] for k in h.stats}
+    evac_in = after["evacuated_in"] - before.get("evacuated_in", 0)
+    if stats["evac_resumes"] < 1 or evac_in < 1 or \
+            stats["fallback_reprefills"]:
+        raise AssertionError(f"disagg serving: router {stats}, evacuated_in "
+                             f"{evac_in}: expected a resume from the drain's"
+                             " evacuation")
+    return {"drain_state": res["state"], "preempt_s": preempt_s,
+            "drain_to_next_token_s": next_token_s, "router": stats,
+            "evacuated_in": evac_in,
+            "drain_stats": next((n.get("drain_stats") for n in
+                                 __import__("ray_tpu_torch").nodes()
+                                 if n["node_id"] == target.node_id), None),
+            "greedy_equal_to_generator": sum(t == w for t, w in
+                                             zip(got, wants))}
+
+
+def disagg_serving_phase(card: str) -> dict:
+    """Phase 17. A cluster_utils.Cluster: the head node holds the driver
+    (the router) and the prefill replica, two more nodes carry a
+    `decode` resource and a decode replica each; every node sees the one
+    card. serve.deploy_disagg at LLAMA3_8B, each replica building the
+    seed-0 weights on its own card. Round A, then round B; returns K3's
+    launches in round A. After serve.shutdown() and the cluster's
+    shutdown no process of the phase is left and the card's memory is
+    back."""
+    import functools
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    cfg = LLAMA3_8B
+    wants = SERVED["greedy"]
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    cluster = Cluster(initialize_head=True, connect=True)
+    try:
+        decode_nodes = [cluster.add_node(num_cpus=4,
+                                         resources={"decode": 1})
+                        for _ in range(2)]
+        cluster.wait_for_nodes()
+        start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h = serve.deploy_disagg(
+            cfg, functools.partial(init_params, cfg, seed=0),
+            prefill_replicas=1, decode_replicas=2, page_size=PAGE,
+            max_batch=MAX_BATCH, max_len=MAX_LEN, decode_chunk=CHUNK,
+            prefix_cache_size=16, prefill_cls=DisaggPrefill,
+            decode_cls=DisaggDecode,
+            prefill_actor_options={"num_gpus": DISAGG_GPU_SHARE},
+            decode_actor_options={"num_gpus": DISAGG_GPU_SHARE,
+                                  "resources": {"decode": 1}})
+        replica_call(h._decode, "counters")
+        replica_call(h._prefill, "banned")
+        deploy_s = time.perf_counter() - t0
+        round_a = disagg_round_a(h, cfg, wants)
+        log("disagg serving, round A: " + json.dumps({
+            "card": card, "cluster_start_s": start_s, "deploy_s": deploy_s,
+            **round_a}))
+        round_b = disagg_round_b(cluster, h, cfg, decode_nodes, wants)
+        log("disagg serving, round B: " + json.dumps({"card": card,
+                                                      **round_b}))
+        banned = daemons_banned(cluster)
+        if any(banned.values()):
+            raise AssertionError(f"disagg serving: daemons loaded {banned}")
+    finally:
+        procs = cluster_processes(cluster._node)
+        t_down = time.perf_counter()
+        try:
+            serve.shutdown()
+        finally:
+            cluster.shutdown()
+    log("disagg serving shutdown: " + json.dumps(
+        cluster_left("disagg serving", procs, free0, t_down)))
+    return round_a["launches"]
+
+
+# Phase 18: CKPT_CFG (0.40B) trained by an elastic gang of two on the one
+# card. The loop runs each epoch's steps, then waits at its kept step's
+# boundary for the resize the phase drives: steps 0-3 on 2 ranks, 4-7 on
+# 1, 8-11 on 2 again.
+ELASTIC_PLAN = {0: 3, 1: 7, 2: 11}
+ELASTIC_STEPS = ELASTIC_PLAN[2] + 1
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def checksum(t: torch.Tensor) -> int:
+    """A position-weighted sum of a tensor's bit patterns, exact in
+    int64: equal checksums of two tensors of one dtype and shape mean the
+    same bits, but for a collision."""
+    bits = t.detach().contiguous().view(-1).view(_BITS[t.element_size()])
+    weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return int((bits.to(torch.int64) * weight).sum())
+
+
+def state_checksums(tree) -> dict:
+    """{name: checksum} of a kept state tree: the parameters, and each
+    optimizer moment and step count."""
+    out = {f"p:{n}": checksum(t) for n, t in tree["params"].items()}
+    for i, st in tree["opt"]["state"].items():
+        out.update({f"o:{i}:{k}": checksum(v) for k, v in st.items()})
+    return out
+
+
+def elastic_loop(config):
+    """The elastic gang worker's loop. It starts from the broadcast
+    weights, from its own kept state (a survivor) or from rank 0's (a
+    grown worker); trains its epoch's steps on the training batch (the
+    same rows on every rank, so the gang's mean gradient is one rank's);
+    reports each step's loss and time and keeps its state; at the
+    epoch's end gathers each rank's checksums, flash launches and start
+    to rank 0's report; then waits at its kept step's boundary. config:
+    "cfg", and optionally "plan" (each epoch's last step; ELASTIC_PLAN)
+    and "device" (None: the card)."""
+    import torch.distributed as tdist
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import session
+
+    cfg, device = config["cfg"], config.get("device")
+    plan = config.get("plan", ELASTIC_PLAN)
+    on_card = device is None
+    epoch = session.get_elastic_epoch()
+    kept = session.get_elastic_state()
+    peers = session.get_peer_states()
+    start_tree = kept if kept is not None else peers.get(0)
+    opt = adamw(3e-4, weight_decay=0.01)
+    if start_tree is None:
+        state = init_train_state(cfg, opt, session.get_broadcast_weights(),
+                                 device=device)
+        first = 0
+    else:
+        state = init_train_state(cfg, opt, dict(start_tree["params"]),
+                                 device=device)
+        state.optimizer.load_state_dict(start_tree["opt"])
+        first = start_tree["step"] + 1
+    info = {"rank": session.get_world_rank(), "first": first,
+            "node": rt.get_runtime_context().node_id,
+            "start": state_checksums(start_tree) if start_tree else None,
+            "peers": {r: state_checksums(p) for r, p in peers.items()},
+            "peer_steps": {r: p["step"] for r, p in peers.items()},
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "banned": banned_loaded()}
+    del kept, peers, start_tree
+    batch = train_batch(cfg, device=device or "cuda")
+    world = session.get_world_size()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    tree = None
+    for step in range(first, plan[epoch] + 1):
+        t0 = time.perf_counter()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = llama_loss(state.model, batch)
+        loss.backward()
+        session.allreduce_gradients(
+            {n: p.grad for n, p in state.model.named_parameters()})
+        state.optimizer.step()
+        value = loss.item()
+        session.report({"step": step, "loss": value, "world": world,
+                        "epoch": epoch, "step_s": time.perf_counter() - t0,
+                        "t": time.time()})
+        tree = {"step": step,
+                "params": {n: p.detach() for n, p in
+                           state.model.named_parameters()},
+                "opt": state.optimizer.state_dict()}
+        session.keep_state(tree, step=step)
+    info.update(launches=dict(fa.launch_counts),
+                steps=plan[epoch] + 1 - first, kept=state_checksums(tree),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30
+                if on_card else 0.0)
+    workers = [info]
+    if world > 1:
+        workers = [None] * world
+        tdist.all_gather_object(workers, info)
+    session.report({"step": "epoch", "epoch": epoch, "workers": workers})
+    if epoch == max(plan):
+        return
+    while True:   # the kept step's boundary, until the resize
+        time.sleep(0.05)
+        session.keep_state(tree, step=plan[epoch])
+
+
+def elastic_reference(cfg, device=None) -> list:
+    """The uninterrupted in-process run: ELASTIC_STEPS steps of
+    make_train_step from the seed-0 weights on the training batch."""
+    state = init_train_state(cfg, adamw(3e-4, weight_decay=0.01),
+                             init_params(cfg, seed=0, device=device),
+                             device=device)
+    step = make_train_step(llama_loss)
+    batch = train_batch(cfg, device=device or "cuda")
+    losses = []
+    for _ in range(ELASTIC_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+    return losses
+
+
+def elastic_summaries(hist) -> dict:
+    return {h["epoch"]: h["workers"] for h in hist if h["step"] == "epoch"}
+
+
+def elastic_checks(cfg, trainer, result, want: list) -> dict:
+    """The run against the uninterrupted one: losses bitwise, every start
+    state the kept state of its step, launches, the resizes."""
+    hist = result.metrics_history
+    steps = [h for h in hist if h["step"] != "epoch"]
+    epochs = elastic_summaries(hist)
+    losses = [h["loss"] for h in steps]
+    problems = []
+    if [h["step"] for h in steps] != list(range(ELASTIC_STEPS)):
+        problems.append(f"steps {[h['step'] for h in steps]}")
+    if [h["world"] for h in steps] != [2] * 4 + [1] * 4 + [2] * 4:
+        problems.append(f"worlds {[h['world'] for h in steps]}")
+    if losses != want:
+        problems.append(f"losses {losses} != the uninterrupted run's {want}")
+    w0, w1, w2 = (epochs.get(e, []) for e in range(3))
+    if len(w0) != 2 or len(w1) != 1 or len(w2) != 2:
+        problems.append(f"gang sizes {len(w0)}, {len(w1)}, {len(w2)}")
+    else:
+        if w1[0]["start"] != w0[0]["kept"] or w1[0]["peer_steps"] != {1: 3} \
+                or w1[0]["peers"].get(1) != w0[1]["kept"]:
+            problems.append("after the shrink: the survivor's start or the "
+                            "departed rank's tree is not the kept state of "
+                            "step 3")
+        if w2[0]["start"] != w1[0]["kept"] or w2[1]["start"] != \
+                w1[0]["kept"] or w2[1]["peer_steps"] != {0: 7}:
+            problems.append("after the grow: a start is not rank 0's kept "
+                            "state of step 7")
+        for e, ws in enumerate((w0, w1, w2)):
+            for w in ws:
+                if w["launches"] != flash_launches(cfg, w["steps"]):
+                    problems.append(f"epoch {e} rank {w['rank']}: flash "
+                                    f"launches {w['launches']} in "
+                                    f"{w['steps']} steps")
+                if w["banned"]:
+                    problems.append(f"rank {w['rank']} loaded {w['banned']}")
+    t = trainer.telemetry
+    if (t["shrinks"], t["grows"], t["elastic_fallbacks"],
+            t["full_restarts"]) != (1, 1, 0, 0) or \
+            t["steps_lost"] > 2 * t["resizes"] or result.checkpoint:
+        problems.append(f"telemetry {t}, checkpoint {result.checkpoint}")
+    if problems:
+        raise AssertionError("elastic gang: " + "; ".join(problems))
+    return epochs
+
+
+def elastic_phase(card: str) -> dict:
+    """Phase 18. A cluster_utils.Cluster whose gang nodes carry a
+    `trainer` resource (two at the start, a third added for the grow);
+    TorchTrainer with ScalingConfig(num_workers=2, use_gpu=True,
+    elastic=ElasticConfig(min_workers=1, max_workers=2)) over gloo (two
+    NCCL ranks cannot share one card) trains CKPT_CFG from the driver's
+    seed-0 weights (initial_weights, by the device plane). After step 3
+    rank 1's node is preempted without a kill (the gang shrinks to 1),
+    then removed and a new node added (the gang grows back to 2, the new
+    member seeded from rank 0 through the device plane). Returns the
+    flash kernels' launches in the gang's steps."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.test_utils import NodePreempter, wait_for_condition
+    from ray_tpu_torch.train import ElasticConfig, ScalingConfig, TorchTrainer
+
+    cfg = CKPT_CFG
+    t0 = time.perf_counter()
+    want = elastic_reference(cfg)
+    reference_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    cluster = Cluster(initialize_head=True, connect=True)
+    trainer = None
+    try:
+        gang = [cluster.add_node(num_cpus=4, resources={"trainer": 1})
+                for _ in range(2)]
+        cluster.wait_for_nodes()
+        trainer = TorchTrainer(
+            elastic_loop, train_loop_config={"cfg": cfg},
+            scaling_config=ScalingConfig(
+                num_workers=2, use_gpu=True,
+                resources_per_worker={"trainer": 1},
+                elastic=ElasticConfig(min_workers=1, max_workers=2)),
+            collective_backend="gloo",
+            initial_weights=init_params(cfg, seed=0))
+        holder = {}
+
+        def fit():
+            try:
+                holder["result"] = trainer.fit()
+            except BaseException as e:  # noqa: BLE001
+                holder["error"] = e
+
+        th = threading.Thread(target=fit, daemon=True)
+        t_fit = time.time()
+        th.start()
+
+        def at_epoch_end(e):
+            if "error" in holder:
+                raise holder["error"]
+            m = trainer.latest_metrics
+            return m.get("step") == "epoch" and m.get("epoch") == e
+
+        wait_for_condition(lambda: at_epoch_end(0), timeout=600)
+        rank1_node = trainer.latest_metrics["workers"][1]["node"]
+        victim = next(n for n in gang if n.node_id == rank1_node)
+        t_drain = time.time()
+        drain = NodePreempter(cluster, deadline_s=10).preempt(victim,
+                                                              kill=False)
+        drained_s = time.time() - t_drain
+        if drain.get("state") != "DRAINED":
+            raise AssertionError(f"elastic gang: the drain ended {drain}")
+        wait_for_condition(lambda: at_epoch_end(1), timeout=300)
+        cluster.remove_node(victim)
+        cluster.add_node(num_cpus=4, resources={"trainer": 1})
+        cluster.wait_for_nodes()
+        t_new = time.time()
+        th.join(600)
+        if th.is_alive() or "error" in holder:
+            raise AssertionError(f"elastic gang: fit {holder or 'hung'}")
+        result = holder["result"]
+        epochs = elastic_checks(cfg, trainer, result, want)
+        steps = [h for h in result.metrics_history if h["step"] != "epoch"]
+        first = {e: next(h for h in steps if h["epoch"] == e)
+                 for e in (1, 2)}
+
+        def ms(world):   # steps after each epoch's first
+            got = [h["step_s"] for h in steps if h["world"] == world
+                   and h is not first.get(h["epoch"]) and h["step"]]
+            return statistics.mean(got) * 1e3
+
+        t = trainer.telemetry
+        out = {"card": card, "config": "CKPT_CFG (0.40B), B 2, S 2048",
+               "reference_run_s": reference_s, "fit_s": time.time() - t_fit,
+               "losses": [h["loss"] for h in steps],
+               "ms_per_step_2_ranks_gloo": ms(2),
+               "ms_per_step_1_rank": ms(1),
+               "drain_s": drained_s,
+               "drain_to_first_step_of_1_s": first[1]["t"] - t_drain,
+               "new_node_to_first_step_of_2_s": first[2]["t"] - t_new,
+               "resizes": [{k: r[k] for k in ("direction", "lost",
+                                              "pause_s", "total_s",
+                                              "evacuated_in", "handoffs")}
+                           for r in t["resize_log"]],
+               "drain_stats": next((n.get("drain_stats") for n in
+                                    __import__("ray_tpu_torch").nodes()
+                                    if n["node_id"] == rank1_node), None),
+               "weights_received": trainer.weights_received,
+               "workers": {e: [{k: w[k] for k in (
+                   "rank", "first", "steps", "launches", "peak_gib",
+                   "visible")} for w in ws] for e, ws in epochs.items()},
+               "telemetry": {k: v for k, v in t.items()
+                             if k != "resize_log"}}
+        log("elastic gang: " + json.dumps(out))
+        banned = daemons_banned(cluster)
+        if any(banned.values()):
+            raise AssertionError(f"elastic gang: daemons loaded {banned}")
+        launches = {k: sum(w["launches"][k] for ws in epochs.values()
+                           for w in ws) for k in FLASH_KERNELS}
+    finally:
+        procs = cluster_processes(cluster._node)
+        t_down = time.perf_counter()
+        del trainer
+        cluster.shutdown()
+    log("elastic gang shutdown: " + json.dumps(
+        cluster_left("elastic gang", procs, free0, t_down)))
+    return launches
 
 
 def run_phase(name: str, fn, *args):
@@ -2918,11 +3562,15 @@ def main():
     ckpt_counts = run_phase("checkpoint", checkpoint_phase, card)
     run_phase("rl learners", rl_phase, card)
     gang_counts = run_phase("gang training", gang_phase, card)
+    disagg_serve_counts = run_phase("disaggregated serving",
+                                    disagg_serving_phase, card)
+    elastic_counts = run_phase("elastic gang", elastic_phase, card)
 
     for name, row in rows.items():
         row["launches"] = counts[name]
         row["disagg_launches"] = disagg_launches[name]
         row["runtime_launches"] = runtime_launches[name]
+        row["disagg_serve_launches"] = disagg_serve_counts[name]
     for name, row in flash_rows.items():
         row["launches"] = flash_counts[name]
         row["sharded_launches"] = sharded_counts[name]
@@ -2932,6 +3580,7 @@ def main():
         row["dit_sample_launches"] = dit_counts["dit_sample"][name]
         row["checkpoint_launches"] = ckpt_counts[name]
         row["gang_launches"] = gang_counts[name]
+        row["elastic_launches"] = elastic_counts[name]
     print(json.dumps({"kernels": [rows[n] for n in KERNELS]
                       + [flash_rows[n] for n in FLASH_KERNELS]}))
     print(card_line())

@@ -9,14 +9,18 @@ module layout and names so each counterpart is easy to find:
   actors, `put`/`get`/`wait` and placement groups work as in `ray_tpu`.
   A node reports its cards as `GPU`, and a lease of `num_gpus` pins the
   worker's CUDA_VISIBLE_DEVICES to distinct cards.
-- `ray_tpu_torch.serve`: deployments, handles and the HTTP proxy; the
-  continuous-batching `LLMEngine` and `LLMServer` over a dense or paged
-  KV cache, its decode chunk a CUDA graph on the card.
+- `ray_tpu_torch.serve`: deployments, handles, the HTTP proxy and the
+  binary RPC ingress, config deploys; the continuous-batching
+  `LLMEngine` and `LLMServer` over a dense or paged KV cache, its decode
+  chunk a CUDA graph on the card; disaggregated prefill and decode pools
+  behind one router (`deploy_disagg`).
+- `ray_tpu_torch.cluster_utils` and `test_utils`: fake multi-node
+  clusters on one machine, and node killers and preempters for drains.
 - `ray_tpu_torch.ops`: the hand-written Hopper kernels (paged decode
   attention, flash attention) beside their plain PyTorch versions.
 - `ray_tpu_torch.models`, `parallel`, `train`, `rllib`: the model
-  families, the mesh and sharding rules, the training step, checkpoints
-  and learners.
+  families, the mesh and sharding rules, the training step, checkpoints,
+  the training gang (fixed or elastic) and learners.
 
 Nothing here imports jax or ray_tpu, and importing a module starts no
 process and does no CUDA work: kernels are built with nvcc at first use

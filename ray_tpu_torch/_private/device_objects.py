@@ -10,8 +10,8 @@ route, each counted under its own name:
 
   in_process -> same process: the live tensor itself (identity), as the
                 reference hands over the live jax.Array
-  ipc        -> same node, CUDA on both sides, and the consumer sees the
-                producer's card: a CUDA IPC handle (torch's
+  ipc        -> same machine, CUDA on both sides, and the consumer sees
+                the producer's card: a CUDA IPC handle (torch's
                 reduce_tensor / rebuild_cuda_tensor) and a device-to-
                 device copy into a fresh tensor on the consumer
   collective -> CUDA on both sides otherwise (another node, or a card
@@ -28,7 +28,8 @@ descriptor reports the object lost, and a resolving owner re-executes
 the creating task through lineage reconstruction (worker.py), which
 re-pins. Releasing the owning ObjectRef unpins (worker._free_object
 notifies the pinning worker). A drain evacuates pins to their ref
-owners (`evacuate`), by the host route.
+owners (`evacuate`), by the ipc route where the owner shares the
+machine and the card, else by the host route.
 
 The reference also exports its counters as util/metrics gauges; the
 port has no util/metrics yet (ROADMAP A1, second part), so `counters()`
@@ -75,6 +76,10 @@ _counters = {
 }
 _handoff_seq = itertools.count(1)
 _pair_seq = itertools.count(1)
+# The host route's bytes go in RPC frames (capped at 2 GiB,
+# _private/rpc.py): a pull or an evacuation sends at most this many
+# bytes of tensors a call.
+HOST_CHUNK_BYTES = 256 << 20
 
 
 def _count(name: str, n: int = 1) -> None:
@@ -357,8 +362,10 @@ def choose_route(meta: DeviceObjectMeta, cw=None) -> str:
     """Transfer route for a stub whose pin is in another process (the
     same-process case never reaches here: the registry hit wins first).
 
-      ipc        - a CUDA tensor, the producer on this node, and this
-                   process sees the producer's card (by UUID)
+      ipc        - a CUDA tensor, the producer on this node or on this
+                   host (several raylets of one machine, as a
+                   cluster_utils.Cluster starts them), and this process
+                   sees the producer's card (by UUID)
       collective - a CUDA tensor, and this process sees a card
       host       - everything else
     """
@@ -367,9 +374,12 @@ def choose_route(meta: DeviceObjectMeta, cw=None) -> str:
     if meta.platform != "cuda" or not torch.cuda.is_available() \
             or torch.cuda.device_count() == 0:
         return "host"
-    same_node = (cw is not None and meta.owner_addr is not None
-                 and meta.owner_addr[3] == cw.node_id)
-    if same_node and _local_card_index(meta.card_uuid) is not None:
+    owner = meta.owner_addr
+    address = getattr(cw, "address", None)
+    same_host = cw is not None and owner is not None and (
+        owner[3] == cw.node_id
+        or (address is not None and owner[0] == address.host))
+    if same_host and _local_card_index(meta.card_uuid) is not None:
         return "ipc"
     return "collective"
 
@@ -424,32 +434,56 @@ def resolve_value(value, cw):
     return tree_map(value, lambda s: resolved[s.meta.key], _is_stub)
 
 
-def _open_ipc(meta: DeviceObjectMeta, blob: bytes):
-    """The consumer's own copy of a tensor pinned in another process on a
-    card this process sees.
+def _open_ipc(pairs: list) -> list:
+    """The consumer's own copies of tensors pinned in another process on
+    cards this process sees; `pairs` is [(meta, handle blob)].
 
-    - Card numbering: the handle is opened on this process's index of
+    - Card numbering: each handle is opened on this process's index of
       the card with the producer's UUID, not the producer's index.
     - Stream order: the pin synchronised the producer's stream, and
       rebuild_cuda_tensor waits on the event reduce_tensor recorded.
-    - Lifetime and writes: the mapped tensor is only read, by one
-      device-to-device copy into a fresh tensor, which finishes before
-      this returns; the mapping is then dropped, so the producer may
-      release its pin, and no process writes into another's pinned
-      tensor."""
+    - Lifetime and writes: the mapped tensors are only read, each by one
+      device-to-device copy into a fresh tensor; the copies finish before
+      this returns and the mappings are dropped then, so the producer may
+      release its pins, and no process writes into another's pinned
+      tensor. The mappings are held until every copy is queued: tensors
+      of one allocation segment then share one opened IPC handle (the
+      caching allocator reuses an open mapping) where opening and
+      closing it for each tensor costs tens of ms apiece."""
     import torch
     from torch.multiprocessing.reductions import rebuild_cuda_tensor
 
-    args = list(pickle.loads(blob))
-    index = _local_card_index(meta.card_uuid)
-    args[6] = index  # storage_device
-    with torch.cuda.device(index):
-        mapped = rebuild_cuda_tensor(*args)
-        out = torch.empty_like(mapped, device=torch.device("cuda", index))
-        out.copy_(mapped)
+    mapped, out, cards = [], [], set()
+    for meta, blob in pairs:
+        args = list(pickle.loads(blob))
+        index = _local_card_index(meta.card_uuid)
+        args[6] = index  # storage_device
+        with torch.cuda.device(index):
+            m = rebuild_cuda_tensor(*args)
+            t = torch.empty_like(m, device=torch.device("cuda", index))
+            t.copy_(m)
+        mapped.append(m)
+        out.append(t)
+        cards.add(index)
+    for index in cards:
         torch.cuda.current_stream(index).synchronize()
     del mapped
     return out
+
+
+def _chunked(items: list, cap: int, nbytes=lambda m: m.nbytes) -> list:
+    """items (metas by default) in consecutive batches of at most `cap`
+    bytes (a larger one alone)."""
+    batches, cur, size = [], [], 0
+    for item in items:
+        if cur and size + nbytes(item) > cap:
+            batches.append(cur)
+            cur, size = [], 0
+        cur.append(item)
+        size += nbytes(item)
+    if cur:
+        batches.append(cur)
+    return batches
 
 
 def _pair_store(host: str, port: int, serve: bool):
@@ -477,8 +511,24 @@ def _pair_group(store, rank: int, tag: str):
 
 
 def _pull_batch(metas: list[DeviceObjectMeta], cw) -> dict:
-    """Fetch all pinned tensors of ONE pinning worker in a single RPC;
-    returns {key: tensor}."""
+    """Fetch the pinned tensors of ONE pinning worker; returns {key:
+    tensor}. Its card tensors and its others go apart (one pull takes
+    one route), each in one RPC, but the host route in calls of at most
+    HOST_CHUNK_BYTES."""
+    out = {}
+    for group in ([m for m in metas if m.platform == "cuda"],
+                  [m for m in metas if m.platform != "cuda"]):
+        if not group:
+            continue
+        route = choose_route(group[0], cw)
+        for batch in (_chunked(group, HOST_CHUNK_BYTES) if route == "host"
+                      else [group]):
+            out.update(_pull(batch, cw, route))
+    return out
+
+
+def _pull(metas: list[DeviceObjectMeta], cw, route: str) -> dict:
+    """One pull RPC to the pinning worker of `metas`, by `route`."""
     from ray_tpu_torch._private import rpc
     from ray_tpu_torch._private.common import Address
 
@@ -494,7 +544,6 @@ def _pull_batch(metas: list[DeviceObjectMeta], cw) -> dict:
         raise exc.DeviceObjectLostError(
             first.key, f"device object {first.key} is no longer pinned "
                        "in this process")
-    route = choose_route(first, cw)
     keys = [m.key for m in metas]
     request = {"keys": keys, "route": route, "requester": cw.worker_id,
                "requester_addr": cw.address.to_wire()}
@@ -524,9 +573,12 @@ def _pull_batch(metas: list[DeviceObjectMeta], cw) -> dict:
     out = {}
     status = resp.get("status")
     if status == "ipc":
-        for item in resp["items"]:
-            out[item["key"]] = _open_ipc(by_key[item["key"]], item["ipc"])
-            _count("ipc")
+        items = resp["items"]
+        got = _open_ipc([(by_key[item["key"]], item["ipc"])
+                         for item in items])
+        for item, t in zip(items, got):
+            out[item["key"]] = t
+        _count("ipc", len(items))
         return out
     if status == "collective":
         import torch
@@ -670,11 +722,15 @@ async def evacuate(cw) -> dict:
     node: called by the raylet's drain pipeline before the node dies.
     Leaves are grouped per device object (prefix) and shipped to the
     ref-owner process, which re-pins them under the SAME keys and
-    refreshes its descriptor (DeviceObjectRepin). The route is the host
-    route (the reference's is too unless its peer plane is opted into):
-    the NCCL route needs the receiver to post its receives, and a push
-    from a dying node has nobody posting them. Pins whose ref owner dies
-    with this node are skipped."""
+    refreshes its descriptor (DeviceObjectRepin); the prefix is released
+    here once all landed. Card tensors go by the ipc route where the
+    owner is on this machine and sees their card (it opens the handles
+    and copies while this process waits), the rest, and those the owner
+    refuses, by the host route in calls of at most HOST_CHUNK_BYTES (the
+    reference's is the host route unless its peer plane is opted into).
+    The NCCL route is not used: it needs the receiver to post its
+    receives, and a push from a dying node has nobody posting them. Pins
+    whose ref owner dies with this node are skipped."""
     import asyncio
 
     from ray_tpu_torch._private.common import Address
@@ -695,6 +751,19 @@ async def evacuate(cw) -> dict:
         by_prefix.setdefault(key.split("#", 1)[0], []).append((key, entry))
     stats = {"evacuated_objects": 0, "evacuated_bytes": 0, "skipped": 0,
              "routes": {}}
+    here = cw.address.host if cw.address else None
+
+    def gather(batch):
+        return [{"key": key, "dtype": dtype, "shape": shape, "data": data,
+                 "on_card": meta.platform == "cuda"}
+                for key, (tensor, meta, _ts) in batch
+                for dtype, shape, data in [_to_wire(tensor)]]
+
+    def handles(batch):
+        return [{"key": key, "meta": meta.to_dict(),
+                 "ipc": _ipc_blob(tensor)}
+                for key, (tensor, meta, _ts) in batch]
+
     for prefix, leaves in by_prefix.items():
         owner_wire = owners.get(prefix)
         if not owner_wire:
@@ -705,33 +774,41 @@ async def evacuate(cw) -> dict:
             # The owner dies with this node: nothing to preserve.
             stats["skipped"] += len(leaves)
             continue
-
-        def gather_all(leaves=leaves):
-            return [(key, *_to_wire(tensor), meta.nbytes,
-                     meta.platform == "cuda")
-                    for key, (tensor, meta, _ts) in leaves]
-
+        routes = {}
+        host = leaves
         try:
-            gathered = await loop.run_in_executor(None, gather_all)
             conn = await cw._owner_conn(addr)
-            resp = await conn.call("DeviceObjectRepin", {
-                "prefix": prefix, "route": "host",
-                "items": [{"key": key, "dtype": dtype, "shape": shape,
-                           "data": data, "on_card": on_card}
-                          for key, dtype, shape, data, _nb, on_card
-                          in gathered]}, timeout=60)
-            if not resp.get("ok"):
-                stats["skipped"] += len(leaves)
-                continue
+            cards = [leaf for leaf in leaves
+                     if leaf[1][1].platform == "cuda"]
+            if cards and addr.host == here:
+                resp = await conn.call("DeviceObjectRepin", {
+                    "prefix": prefix, "route": "ipc",
+                    "items": await loop.run_in_executor(None, handles,
+                                                        cards)},
+                    timeout=60)
+                if resp.get("ok"):
+                    routes["ipc"] = len(cards)
+                    host = [leaf for leaf in leaves
+                            if leaf[1][1].platform != "cuda"]
+            for batch in _chunked(host, HOST_CHUNK_BYTES,
+                                  lambda leaf: leaf[1][1].nbytes):
+                items = await loop.run_in_executor(None, gather, batch)
+                resp = await conn.call("DeviceObjectRepin", {
+                    "prefix": prefix, "route": "host", "items": items},
+                    timeout=60)
+                if not resp.get("ok"):
+                    raise RuntimeError(f"repin refused: {resp}")
+            if host:
+                routes["host"] = len(host)
         except Exception:
             _count("errors_total")
             stats["skipped"] += len(leaves)
             continue
         reg.release_prefix(prefix, counted=False)
         stats["evacuated_objects"] += len(leaves)
-        stats["evacuated_bytes"] += sum(g[4] for g in gathered)
-        stats["routes"]["host"] = stats["routes"].get("host", 0) \
-            + len(leaves)
+        stats["evacuated_bytes"] += sum(e[1].nbytes for _k, e in leaves)
+        for route, n in routes.items():
+            stats["routes"][route] = stats["routes"].get(route, 0) + n
         _count("evacuated_out", len(leaves))
     return stats
 
@@ -740,22 +817,37 @@ async def handle_repin(cw, payload: dict) -> dict:
     """Ref-owner side of a drain evacuation: pin the tensors a dying node
     shipped over in THIS process under their original keys, and repoint
     the owned object's descriptor here, so gets resolve against a live
-    pin instead of falling into lineage reconstruction."""
+    pin instead of falling into lineage reconstruction. An "ipc" batch
+    (handles to the evacuating process's card tensors) is refused unless
+    this process sees every card named; the evacuator then sends the
+    bytes."""
+    import asyncio
+
     require_fields(payload, "prefix", "items", method="handle_repin")
     prefix = payload["prefix"]
+    items = payload["items"]
+    if payload.get("route") == "ipc":
+        import torch
+
+        metas = [DeviceObjectMeta(**item["meta"]) for item in items]
+        if not torch.cuda.is_available() or any(
+                _local_card_index(m.card_uuid) is None for m in metas):
+            return {"ok": False, "reason": "the cards are not seen here"}
+        tensors = await asyncio.get_running_loop().run_in_executor(
+            None, _open_ipc, [(m, item["ipc"]) for m, item in
+                              zip(metas, items)])
+    else:
+        tensors = [_from_wire(item["dtype"], item["shape"], item["data"],
+                              bool(item.get("on_card"))) for item in items]
     reg = registry()
-    n = total = 0
-    for item in payload["items"]:
-        tensor = _from_wire(item["dtype"], item["shape"], item["data"],
-                            bool(item.get("on_card")))
-        meta = reg.pin(item["key"], tensor, cw)
-        total += meta.nbytes
-        n += 1
+    total = 0
+    for item, tensor in zip(items, tensors):
+        total += reg.pin(item["key"], tensor, cw).nbytes
     own_wire = cw.address.to_wire() if cw.address else None
     reg.note_ref_owner(prefix, own_wire)
-    _count("evacuated_in", n)
+    _count("evacuated_in", len(items))
     cw._post(cw._repoint_device_pin, prefix, own_wire)
-    return {"ok": True, "repinned": n, "bytes": total}
+    return {"ok": True, "repinned": len(items), "bytes": total}
 
 
 def note_lost() -> None:

@@ -19,8 +19,10 @@ from ray_tpu_torch._private.config import Config
 from ray_tpu_torch._private.ids import NodeID
 
 
-def _spawn_with_ready(cmd: list[str], log_path: str, timeout: float = 30.0):
-    """Spawn a daemon with a ready-fd pipe; returns (proc, ready_line)."""
+def _spawn_with_ready(cmd: list[str], log_path: str, timeout: float = 30.0,
+                      env: dict | None = None):
+    """Spawn a daemon with a ready-fd pipe; returns (proc, ready_line).
+    `env` adds to (or overrides) this process's environment."""
     read_fd, write_fd = os.pipe()
     os.set_inheritable(write_fd, True)
     os.makedirs(os.path.dirname(log_path), exist_ok=True)
@@ -29,7 +31,8 @@ def _spawn_with_ready(cmd: list[str], log_path: str, timeout: float = 30.0):
         cmd + [f"--ready-fd={write_fd}"],
         pass_fds=(write_fd,),
         stdout=log_file, stderr=subprocess.STDOUT,
-        start_new_session=True)
+        start_new_session=True,
+        env={**os.environ, **env} if env else None)
     log_file.close()
     os.close(write_fd)
     deadline = time.monotonic() + timeout
@@ -120,10 +123,13 @@ class RuntimeNode:
 
     def start_raylet(self, resources: dict | None = None, labels: dict | None = None,
                      is_head: bool = False,
-                     gcs_addr: tuple[str, int] | None = None) -> NodeHandle:
+                     gcs_addr: tuple[str, int] | None = None,
+                     env: dict | None = None) -> NodeHandle:
         """gcs_addr overrides the GCS endpoint this raylet dials — the
         hook chaos tests use to route one node's control-plane traffic
-        through a NetChaos proxy (test_utils.NetChaos)."""
+        through a NetChaos proxy. env adds to the raylet's environment
+        (CUDA_VISIBLE_DEVICES gives a fake node of one machine its own
+        cards)."""
         assert self.gcs_host is not None, "start or attach GCS first"
         gcs_host, gcs_port = gcs_addr or (self.gcs_host, self.gcs_port)
         node_id = NodeID.from_random().hex()
@@ -136,7 +142,8 @@ class RuntimeNode:
         if is_head:
             cmd.append("--head")
         proc, line = _spawn_with_ready(
-            cmd, os.path.join(self.session_dir, "logs", f"raylet-{node_id[:8]}.log"))
+            cmd, os.path.join(self.session_dir, "logs", f"raylet-{node_id[:8]}.log"),
+            env=env)
         host, port, nid, store_path = line.split(":", 3)
         handle = NodeHandle(proc, nid, host, int(port), store_path)
         self.nodes.append(handle)

@@ -9,10 +9,12 @@ its card through `ray_actor_options={"num_gpus": 1}`, and its lease pins
 the worker to that card.
 
 Also the continuous-batching LLM engine (`serve/llm.py`): `LLMEngine`,
-and `LLMServer`, which runs unchanged behind `@serve.deployment`.
-
-The binary RPC ingress, declarative config deploys and disaggregated
-serving wait for the rest of ROADMAP A10 and raise until then.
+and `LLMServer`, which runs unchanged behind `@serve.deployment`;
+disaggregated serving (`deploy_disagg`, serve/llm_disagg.py: a prefill
+pool and a decode pool under one router); the binary msgpack-RPC
+ingress beside HTTP (`start_rpc_proxy`, serve/rpc_ingress.py); and
+declarative multi-application deploys (`deploy_config`,
+serve/config_deploy.py).
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ def delete(name: str) -> None:
 
 
 def shutdown() -> None:
-    global _proxy_server
+    global _proxy_server, _rpc_ingress
     _ProxyHandler._route_poll_stop.set()
     _ProxyHandler._route_poll_started = False
     _ProxyHandler._routes = {}
@@ -113,6 +115,9 @@ def shutdown() -> None:
     if _proxy_server is not None:
         _proxy_server.shutdown()
         _proxy_server = None
+    if _rpc_ingress is not None:
+        _rpc_ingress.stop()
+        _rpc_ingress = None
     for actor, _host, _port in _node_proxies.values():
         try:
             ray_tpu_torch.kill(actor)
@@ -295,18 +300,22 @@ class _ProxyHandler(BaseHTTPRequestHandler):
 
 @ray_tpu_torch.remote(num_cpus=0)
 class _ProxyActor:
-    """Runs the HTTP ingress inside a worker on a specific node
-    (reference: serve proxies on every node, serve/_private/proxy.py:13-38;
-    handles inside the actor route to replicas cluster-wide). The
-    reference's second, binary protocol waits for ROADMAP A10."""
+    """Runs both ingress protocols inside a worker on a specific node:
+    HTTP and the binary msgpack-RPC ingress (reference: serve proxies
+    serve HTTP and gRPC on every node, serve/_private/proxy.py:13-38;
+    handles inside the actor route to replicas cluster-wide)."""
 
     def __init__(self, port: int):
         from ray_tpu_torch import serve as _serve
 
         self.port = _serve.start_http_proxy(host="0.0.0.0", port=port)
+        self.rpc_port = _serve.start_rpc_proxy(host="0.0.0.0", port=0)
 
     def address(self) -> int:
         return self.port
+
+    def rpc_address(self) -> int:
+        return self.rpc_port
 
     def healthy(self) -> bool:
         return True
@@ -394,26 +403,36 @@ def start_http_proxy(host: str = "127.0.0.1", port: int = 8000) -> int:
     return _proxy_server.server_address[1]
 
 
-_A10 = ("waits for the rest of ROADMAP A10 (disaggregated serving and the "
-        "Serve pieces that ride on it); ray_tpu_torch does not have it yet")
+_rpc_ingress = None
 
 
 def start_rpc_proxy(host: str = "127.0.0.1", port: int = 0) -> int:
-    """Binary (msgpack-RPC) ingress beside HTTP (reference:
-    serve/rpc_ingress.py)."""
-    raise NotImplementedError(f"serve.start_rpc_proxy {_A10}")
+    """Binary (msgpack-RPC) ingress beside HTTP, the second protocol
+    (reference: the proxy's gRPC listener, serve/_private/proxy.py:13-38).
+    See serve/rpc_ingress.py for the wire protocol; RpcIngressClient is
+    its caller. Returns the port."""
+    global _rpc_ingress
+    from ray_tpu_torch.serve.rpc_ingress import RpcIngress
+
+    _rpc_ingress = RpcIngress()
+    return _rpc_ingress.start(host, port)
 
 
 def deploy_config(config):
-    """Declarative multi-application deploy (reference:
-    serve/config_deploy.py)."""
-    raise NotImplementedError(f"serve.deploy_config {_A10}")
+    """Declarative multi-application deploy (reference: serve's REST
+    config, `serve deploy`); see serve/config_deploy.py for the schema."""
+    from ray_tpu_torch.serve.config_deploy import deploy_config as _impl
+
+    return _impl(config)
 
 
 def deploy_disagg(cfg, params, **kwargs):
-    """Disaggregated LLM serving: prefill + decode replica pools under one
-    router (reference: serve/llm_disagg.py's deploy_disagg)."""
-    raise NotImplementedError(f"serve.deploy_disagg {_A10}")
+    """Disaggregated LLM serving: prefill and decode replica pools under
+    one router, the KV handed over through the device plane, a prefix
+    cache and per-pool autoscaling. See serve/llm_disagg.py."""
+    from ray_tpu_torch.serve.llm_disagg import deploy_disagg as _impl
+
+    return _impl(cfg, params, **kwargs)
 
 
 __all__ = [

@@ -293,11 +293,13 @@ class LLMEngine:
 
     def submit_prefilled(self, pack: _Prefilled,
                          sampling: SamplingParams | None = None,
-                         tag: str = "") -> RequestHandle:
+                         tag: str = "",
+                         stream_buffer: int | None = None) -> RequestHandle:
         """Admit a request whose prefill ran elsewhere (a prefill pool, or
         a drained stream being resumed): the KV prefix lands in a free
         slot and decoding continues from `pack.token` without running
-        prefill here."""
+        prefill here. `stream_buffer` bounds this stream's token queue
+        (default: the engine's)."""
         sp = sampling or SamplingParams()
         budget = sp.max_new_tokens - pack.generated
         if budget <= 0:
@@ -307,7 +309,8 @@ class LLMEngine:
                 f"kv_len({pack.lens}) + remaining({budget}) exceeds "
                 f"engine max_len={self.max_len}")
         handle = RequestHandle(pack.prompt_len, sp,
-                               max_buffered=self._stream_buffer, tag=tag)
+                               max_buffered=stream_buffer
+                               or self._stream_buffer, tag=tag)
         self._pending.put((pack, handle))
         return handle
 

@@ -6,21 +6,28 @@ The reference's ScalingConfig speaks TPU chips (`use_tpu`,
 `tpu_chips_per_worker`); here a worker takes GPUs (`use_gpu`,
 `gpus_per_worker`), and its lease pins it to its cards. `use_gpu`
 defaults to True: a gang runs on the card unless the caller asks for the
-CPU. The reference's STRICT_ICI placement has no counterpart, and the
-elastic gang (`elastic=`) waits for ROADMAP A5's elastic part.
+CPU. The reference's STRICT_ICI placement has no counterpart.
+`elastic=ElasticConfig(...)` opts the gang into drain-driven resizes
+(train/trainer.py's elastic path).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-ELASTIC_ITEM = "ROADMAP A5 (the elastic gang)"
-
-
 @dataclass
 class ElasticConfig:
-    """The reference's resize envelope for elastic gang training. The
-    port takes none yet: ScalingConfig(elastic=...) raises."""
+    """Resize envelope for elastic gang training: a DRAINING member is a
+    resize (pause at the step boundary, re-home state through the device
+    plane, resume on the survivors), not a checkpoint restart.
+
+    min_workers: the smallest gang that keeps training (below it the
+      elastic path gives up and falls back to a checkpoint restart).
+    max_workers: the grow-back ceiling (default ScalingConfig.num_workers).
+    reshard_timeout_s: the budget for one resize (pause, state hand-off,
+      rendezvous); overrunning it falls back to the checkpoint.
+    grow_poll_s: how often the trainer probes for restored capacity.
+    """
 
     min_workers: int = 1
     max_workers: int | None = None
@@ -38,6 +45,10 @@ class ScalingConfig:
       landing tasks).
     mesh: logical mesh axis sizes for the in-worker SPMD program.
     placement_strategy: PACK/SPREAD/STRICT_PACK/STRICT_SPREAD.
+    elastic: opt the gang into drain-driven resizes. An elastic gang is
+      scheduled without a placement group (its membership changes at
+      run time; DRAINING nodes are already excluded from placement), so
+      it excludes the STRICT_* strategies.
     """
 
     num_workers: int = 1
@@ -50,10 +61,6 @@ class ScalingConfig:
     elastic: ElasticConfig | None = None
 
     def __post_init__(self):
-        if self.elastic is not None:
-            raise NotImplementedError(
-                f"ScalingConfig(elastic=...) needs the elastic gang, which "
-                f"comes with {ELASTIC_ITEM}; run a fixed gang")
         if self.placement_strategy == "STRICT_ICI":
             raise ValueError(
                 "STRICT_ICI places a gang on one TPU slice and has no "

@@ -237,12 +237,15 @@ def reshard_to_mesh(state: TrainState, specs: dict,
     over the same processes: each parameter and each of its optimizer
     moments is gathered and each rank keeps its new shard (the reference
     moves only the shards that change owner). The parameters are new
-    objects, in the model and in the optimizer. A mesh over another world
-    needs a new process group: the elastic resize of the train gang."""
+    objects, in the model and in the optimizer. A sharded state onto a
+    world of another size (a new process group, shards moved between
+    ranks) is not supported: the elastic gang re-homes replicated
+    data-parallel state (train/trainer.py)."""
     if mesh.size() != dist.get_world_size():
         raise NotImplementedError(
             f"a mesh of {mesh.size()} ranks over a world of "
-            f"{dist.get_world_size()}: resizing the world is not supported")
+            f"{dist.get_world_size()}: a sharded state onto a world of "
+            "another size is not supported (ROADMAP A5's remainder)")
     model, opt = state.model, state.optimizer
     lmesh = layout_mesh(mesh, specs["params"].values())
     old = dict(model.named_parameters())

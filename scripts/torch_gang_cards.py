@@ -20,15 +20,26 @@ cards of one host, on the port's runtime (ray_tpu_torch.init()).
    (both sequences a step) beside the baseline's, the fetch and step ms
    per step, K1 and K1-bwd launches per rank.
 
+4. elastic - chip_smoke.py's elastic gang (phase 18's loop, CKPT_CFG
+   0.40B, bf16, the training batch on every rank) on NCCL, one rank a
+   card: a cluster_utils.Cluster whose gang nodes each see one card of
+   their own (CUDA_VISIBLE_DEVICES), three workers on cards 1-3, rank
+   1's node drained (the gang shrinks to 2), then removed and a node on
+   card 0, the fourth card, added (the gang grows back to 3, the new
+   rank seeded from rank 0). Steps 0-3 on 3 ranks, 4-7 on 2, 8-11 on 3.
+   The losses against chip_smoke's uninterrupted run on one card, the
+   resizes' seconds, and the route each hand-off took (between cards:
+   the collective route, a fresh NCCL pair a pull).
+
 Prints one JSON line with the card's name and power limit; any failure
 ends the run non-zero. Run from the repository root on a host with 2 or
-more cards:
+more cards (step 4 needs 4):
 
     python3 scripts/torch_gang_cards.py
 
-`--cpu` runs step 3 on two gloo workers at tiny widths on the CPU
-(landings and weights by the host route; step 2 needs cards), a
-rehearsal without cards.
+`--cpu` runs steps 3 and 4 on gloo workers at tiny widths on the CPU
+(landings, weights and states by the host route; step 2 needs cards), a
+rehearsal without cards. `--only elastic` runs step 4 alone.
 """
 
 from __future__ import annotations
@@ -218,10 +229,101 @@ def cpu_baseline(cfg) -> dict:
             * chip_smoke.TRAIN_S * (STEPS + 1) / (time.perf_counter() - t0)}
 
 
+def elastic_run(cfg, cpu: bool) -> dict:
+    """Step 4: three workers, one card each; 3 -> 2 -> 3."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.test_utils import NodePreempter, wait_for_condition
+    from ray_tpu_torch.train import ElasticConfig, ScalingConfig, TorchTrainer
+
+    device = "cpu" if cpu else None
+    want = chip_smoke.elastic_reference(cfg, device=device)
+    cards = (lambda i: "") if cpu else str
+    cluster = Cluster(initialize_head=True, connect=True,
+                      head_node_args={"cuda_visible_devices": cards(0)})
+    try:
+        gang = [cluster.add_node(num_cpus=4, resources={"trainer": 1},
+                                 cuda_visible_devices=cards(i))
+                for i in (1, 2, 3)]
+        cluster.wait_for_nodes()
+        trainer = TorchTrainer(
+            chip_smoke.elastic_loop,
+            train_loop_config={"cfg": cfg, "device": device,
+                               "plan": chip_smoke.ELASTIC_PLAN},
+            scaling_config=ScalingConfig(
+                num_workers=3, use_gpu=not cpu,
+                resources_per_worker={"trainer": 1},
+                elastic=ElasticConfig(min_workers=2, max_workers=3)),
+            initial_weights=init_params(cfg, seed=0, device=device))
+        holder = {}
+
+        def fit():
+            try:
+                holder["result"] = trainer.fit()
+            except BaseException as e:  # noqa: BLE001
+                holder["error"] = e
+
+        import threading
+
+        th = threading.Thread(target=fit, daemon=True)
+        th.start()
+
+        def at_epoch_end(e):
+            if "error" in holder:
+                raise holder["error"]
+            m = trainer.latest_metrics
+            return m.get("step") == "epoch" and m.get("epoch") == e
+
+        wait_for_condition(lambda: at_epoch_end(0), timeout=900)
+        rank1 = trainer.latest_metrics["workers"][1]["node"]
+        victim = next(n for n in gang if n.node_id == rank1)
+        t_drain = time.time()
+        drain = NodePreempter(cluster, deadline_s=10).preempt(victim,
+                                                              kill=False)
+        wait_for_condition(lambda: at_epoch_end(1), timeout=600)
+        cluster.remove_node(victim)
+        cluster.add_node(num_cpus=4, resources={"trainer": 1},
+                         cuda_visible_devices=cards(0))
+        cluster.wait_for_nodes()
+        t_new = time.time()
+        th.join(900)
+        if th.is_alive() or "error" in holder:
+            raise AssertionError(f"gang cards: elastic fit "
+                                 f"{holder or 'hung'}")
+        hist = holder["result"].metrics_history
+    finally:
+        cluster.shutdown()
+    steps = [h for h in hist if h["step"] != "epoch"]
+    epochs = chip_smoke.elastic_summaries(hist)
+    losses = [h["loss"] for h in steps]
+    first = {e: next(h for h in steps if h["epoch"] == e) for e in (1, 2)}
+    t = trainer.telemetry
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    out = {"drain_state": drain.get("state"),
+           "worlds": [h["world"] for h in steps], "losses": losses,
+           "one_card_losses": want, "bitwise": losses == want,
+           "max_loss_rel": max(rel) if rel else None,
+           "drain_to_first_step_of_2_s": first[1]["t"] - t_drain,
+           "new_node_to_first_step_of_3_s": first[2]["t"] - t_new,
+           "resizes": [{k: r[k] for k in ("direction", "lost", "pause_s",
+                                          "total_s", "evacuated_in",
+                                          "handoffs")}
+                       for r in t["resize_log"]],
+           "visible": {e: [w["visible"] for w in ws]
+                       for e, ws in epochs.items()},
+           "telemetry": {k: v for k, v in t.items() if k != "resize_log"}}
+    if out["worlds"] != [3] * 4 + [2] * 4 + [3] * 4 or \
+            (t["shrinks"], t["grows"], t["elastic_fallbacks"]) != (1, 1, 0) \
+            or not rel or max(rel) > 2 ** -8:
+        raise AssertionError(f"gang cards: elastic run {out}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
-                    help="two gloo workers at tiny widths on the CPU")
+                    help="gloo workers at tiny widths on the CPU")
+    ap.add_argument("--only", choices=("elastic",),
+                    help="run step 4 alone")
     args = ap.parse_args()
     import ray_tpu_torch as rt
     from ray_tpu_torch._vendor import cloudpickle
@@ -234,24 +336,35 @@ def main():
             chip_smoke.TRAIN_CFG, vocab_size=256, d_model=64, n_layers=2,
             n_heads=4, n_kv_heads=4, d_ff=128, dtype=torch.float32)
         chip_smoke.TRAIN_S = 32
-        card, baseline = "cpu", cpu_baseline(cfg)
-        rt.init(num_cpus=4)
+        card = "cpu"
     else:
-        if torch.cuda.device_count() < 2:
-            sys.exit("torch_gang_cards: needs 2 or more cards")
+        if torch.cuda.device_count() < (4 if args.only else 2):
+            sys.exit("torch_gang_cards: needs 2 or more cards (4 for "
+                     "step 4)")
         cfg = chip_smoke.TRAIN_CFG
         card = chip_smoke.card_line()
         chip_smoke._build.build_all()
-        chip_smoke.training_phase(card, steps=STEPS)
-        baseline = chip_smoke.TRAINED["training"]
-        rt.init()
-    try:
-        plane = None if args.cpu else plane_check(rt)
-        gang = gang_run(rt, cfg, args.cpu, baseline)
-    finally:
-        rt.shutdown()
+    plane = gang = None
+    if not args.only:
+        if args.cpu:
+            baseline = cpu_baseline(cfg)
+            rt.init(num_cpus=4)
+        else:
+            chip_smoke.training_phase(card, steps=STEPS)
+            baseline = chip_smoke.TRAINED["training"]
+            rt.init()
+        try:
+            plane = None if args.cpu else plane_check(rt)
+            gang = gang_run(rt, cfg, args.cpu, baseline)
+        finally:
+            rt.shutdown()
+    elastic = None
+    if args.cpu or torch.cuda.device_count() >= 4:
+        elastic = elastic_run(cfg if args.cpu else chip_smoke.CKPT_CFG,
+                              args.cpu)
     print(json.dumps({"card": card, "cards": torch.cuda.device_count(),
-                      "device_plane": plane, "gang": gang}), flush=True)
+                      "device_plane": plane, "gang": gang,
+                      "elastic": elastic}), flush=True)
 
 
 if __name__ == "__main__":

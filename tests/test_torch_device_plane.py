@@ -334,3 +334,33 @@ def test_host_wire_round_trip_is_bitwise(dtype):
     assert got.dtype == t.dtype and got.shape == t.shape
     assert torch.equal(got.view(-1).view(torch.uint8),
                        t.contiguous().view(-1).view(torch.uint8))
+
+
+def test_pulls_split_by_platform_and_chunk_the_host_route(monkeypatch):
+    """A worker's card tensors and CPU tensors go in separate pulls (a
+    pull takes one route), and the host route's in calls of at most
+    HOST_CHUNK_BYTES: an RPC frame is capped at 2 GiB."""
+    def meta(key, nbytes, platform):
+        return device_objects.DeviceObjectMeta(
+            key=key, shape=[nbytes // 4], dtype="float32", nbytes=nbytes,
+            owner_addr=["h", 1, "w", "n1"], platform=platform,
+            device_ids=[0] if platform == "cuda" else [], sharding="",
+            card_uuid="GPU-x")
+
+    calls = []
+    monkeypatch.setattr(device_objects, "HOST_CHUNK_BYTES", 100)
+    monkeypatch.setattr(device_objects, "choose_route",
+                        lambda m, cw: "ipc" if m.platform == "cuda"
+                        else "host")
+    monkeypatch.setattr(device_objects, "_pull", lambda ms, cw, route: (
+        calls.append((route, [m.key for m in ms])) or
+        {m.key: m.key for m in ms}))
+    metas = [meta("a", 60, "cpu"), meta("g", 400, "cuda"),
+             meta("b", 60, "cpu"), meta("c", 200, "cpu"),
+             meta("d", 40, "cpu"), meta("h", 400, "cuda")]
+    out = device_objects._pull_batch(metas, None)
+    assert sorted(out) == sorted(m.key for m in metas)
+    assert calls == [("ipc", ["g", "h"]), ("host", ["a"]), ("host", ["b"]),
+                     ("host", ["c"]), ("host", ["d"])]
+    assert device_objects._chunked([1, 2, 3, 4], 5, lambda n: n) == \
+        [[1, 2], [3], [4]]

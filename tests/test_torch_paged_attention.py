@@ -191,7 +191,9 @@ def test_import_loads_no_jax_and_no_cuda():
         "ray_tpu_torch.util.collective, ray_tpu_torch._private.device_objects, "
         "ray_tpu_torch.data, ray_tpu_torch.train, ray_tpu_torch.train.torch, "
         "ray_tpu_torch.train.trainer, ray_tpu_torch.train.worker_group, "
-        "ray_tpu_torch.train.session, ray_tpu_torch.train.config\n"
+        "ray_tpu_torch.train.session, ray_tpu_torch.train.config, "
+        "ray_tpu_torch.cluster_utils, ray_tpu_torch.test_utils, "
+        "ray_tpu_torch.serve.rpc_ingress, ray_tpu_torch.serve.config_deploy\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                  'orbax', 'ray_tpu', 'msgpack',\n"

@@ -5,9 +5,10 @@ f32 weights converted from the flax tree, streams greedy tokens through
 a handle and through the HTTP proxy (`POST /<name>?stream=1`), requests
 sent together; every stream equals the JAX `LLMEngine`'s greedy tokens
 on the same weights, computed in process as tests/test_serve_llm.py
-expects them. A plain deployment checks `status` and `delete`; the
-pieces that wait for ROADMAP A10 raise, naming it. One cluster for the
-file.
+expects them. A plain deployment checks `status` and `delete`. One
+cluster for the file. Disaggregated serving, the RPC ingress and config
+deploys have their own files (tests/test_torch_disagg_serve.py,
+tests/test_torch_serve_config.py).
 """
 
 import concurrent.futures
@@ -119,13 +120,3 @@ def test_plain_deployment_status_and_delete(cluster):
     assert serve.status()["Echo"]["num_replicas"] == 1
     serve.delete("Echo")
     assert "Echo" not in serve.status()
-
-
-@pytest.mark.parametrize("call", [
-    lambda: serve.start_rpc_proxy(),
-    lambda: serve.deploy_config({}),
-    lambda: serve.deploy_disagg(None, None),
-], ids=["rpc_ingress", "config_deploy", "deploy_disagg"])
-def test_pieces_waiting_for_a10_raise(call):
-    with pytest.raises(NotImplementedError, match="A10"):
-        call()

@@ -11,6 +11,7 @@ The first attempt fails after step 1's checkpoint, and the retry
 resumes from it. The final parameters are held against JAX's
 make_train_step on the full batches from the same flax weights, at
 test_torch_train.py's tolerance for final parameters (1e-5).
+The elastic gang has its own file, tests/test_torch_elastic.py.
 """
 
 import os
@@ -261,8 +262,14 @@ def test_fit_with_use_gpu_on_a_cluster_without_a_card_raises(port_rt):
 
 def test_elastic_and_strict_ici_raise():
     from ray_tpu_torch.train import ElasticConfig, ScalingConfig
+    from ray_tpu_torch.train.worker_group import WorkerGroup
 
-    with pytest.raises(NotImplementedError, match="A5"):
-        ScalingConfig(elastic=ElasticConfig())
+    # elastic= is taken (tests/test_torch_elastic.py drives it), and an
+    # elastic gang refuses a STRICT_* placement, as the reference's does.
+    sc = ScalingConfig(num_workers=2, elastic=ElasticConfig(min_workers=1))
+    assert sc.elastic.min_workers == 1 and sc.elastic.max_workers is None
+    with pytest.raises(ValueError, match="STRICT"):
+        WorkerGroup(ScalingConfig(placement_strategy="STRICT_PACK",
+                                  elastic=ElasticConfig()))
     with pytest.raises(ValueError, match="STRICT_ICI"):
         ScalingConfig(placement_strategy="STRICT_ICI")
