@@ -271,6 +271,30 @@ Phases, in order; a failure in any of them ends the run with an error:
              the new node to the grown gang's, and each hand-off's bytes
              and route. No process left, memory back. Neither phase's
              processes load jax, ray_tpu, msgpack or cloudpickle.
+19. rl on the runtime - run after 18, on ray_tpu_torch.init()'s
+             defaults, TF32 off. (a) PPO at RLlib's Atari config
+             (atari_cnn, hidden 256, on VisualCatch-v0's 42x42x1
+             frames; PPOConfig's defaults: 2 rollout workers x 512
+             steps, batch 1024, minibatch 256, 6 epochs), PPOConfig
+             .build() with the learner in the driver on the card, 3
+             iterations: every loss term finite; the first iteration's
+             24 updates run again on the CPU from the same batch and
+             params, held by phase 14's limits; the rollout workers
+             report no CUDA context and no banned package, nor does the
+             driver. (b) The same with num_learners=2: two LearnerActors
+             on half the card each over gloo, 2 iterations; the
+             fingerprints equal after every update; the first
+             update_shards within 1e-4 of the mean-gradient step on the
+             CPU from the same shards (first-step ties as phase 14's).
+             (c) One iteration each of IMPALA (num_learners=2), APPO,
+             PG, A2C and A3C on CartPole, learners on the card, and of
+             ES and ARS, at their configs' defaults: all finite. Logs
+             each algorithm's sample and learn seconds, samples/s and
+             updates/s, and the groups' gradient mean in ms and bytes
+             an update. No kernel lies on this path: the kernels line's
+             `rl_launches` are this process's counts over the phase (0).
+             After the shutdown no process of the phase's cluster is
+             left.
 
 Prints the kernels as one JSON line (a paged kernel's `launches` from
 the serving phase, graph replays included; a flash kernel's from the
@@ -280,7 +304,8 @@ from phase 9's sharded steps, `dit_launches` from DiT-XL/2's timed
 steps, `dit_sample_launches` from the sampler's run and
 `checkpoint_launches` from phase 13's run A, `gang_launches` from
 phase 16's gang worker, `elastic_launches` from phase 18's workers; a
-paged kernel's `disagg_launches` from phase 12's hand-offs,
+paged kernel's `disagg_launches` from phase 12's hand-offs, every
+kernel's `rl_launches` from phase 19 (0: no kernel on the RL path),
 `runtime_launches` from phase 15's replica and `disagg_serve_launches`
 from phase 17's decode replicas; a flash kernel's `dit_shape`
 the times at DiT-XL/2's attention, B 32, H 16, S 256, D 72, non-causal),
@@ -2093,40 +2118,32 @@ def record_updates(learner) -> dict:
     return rec
 
 
-def ppo_parity(card: str, model: str, obs_shape, n_act: int) -> dict:
-    """PPOConfig's defaults (batch 1024, minibatch 256, 6 epochs: 24
-    updates) on the card and on the CPU from the same numpy params: the
-    first update's loss within 2e-5 and grads within 1e-4, every update's
-    loss within 2e-5, and every parameter after the 24 updates within
-    1e-4 but at ties, which are counted and held to 2 lr an update (the
-    most Adam moves an element): first-step ties (a first gradient that
-    differs and is under Adam's eps on either side), and later ties, at
-    most 1% of a parameter's elements (a ReLU input at 0 within
-    rounding at some update, which moves that update's gradient on one
-    side only). Then a second learn() on the card, timed."""
-    cfg = PPOConfig(model=model)
-    spec = get_model(model)
-    obs_in = obs_shape if model == "atari_cnn" else obs_shape[0]
-    params = spec.init_params(obs_in, n_act, spec.default_hidden, cfg.seed)
-    batch = ppo_batch(obs_shape, n_act, cfg.train_batch_size)
-    sides = {}
-    for device in ("cuda", "cpu"):
-        learner = PPOLearner(cfg, obs_in, n_act, params=params, device=device)
-        rec = record_updates(learner)
-        learner.learn(batch, iteration=0)
-        sides[device] = (learner, {"losses": torch.stack(rec["losses"]).cpu(),
-                                   "grads": rec["grads"]})
-    (gpu, rec_gpu), (cpu, rec_cpu) = sides["cuda"], sides["cpu"]
-    updates = cpu.updates
-    if gpu.updates != updates or updates != 24:
-        raise AssertionError(f"ppo {model}: {gpu.updates} and {updates} "
-                             "updates")
+def hold_ppo_updates(card: str, model: str, obs_shape, cfg, got, rec_gpu,
+                     want, rec_cpu) -> dict:
+    """A card learner's updates against a CPU learner's from the same
+    params and batch (each recorded by record_updates; got and want the
+    params after them, numpy): the first
+    update's loss within 2e-5 and grads within 1e-4, every update's loss
+    within 2e-5, and every parameter within 1e-4 but at ties, which are
+    counted and held to 2 lr an update (the most Adam moves an element):
+    first-step ties (a first gradient that differs and is under Adam's
+    eps on either side), and later ties, at most 1% of a parameter's
+    elements (a ReLU input at 0 within rounding at some update, which
+    moves that update's gradient on one side only). Returns the row;
+    raises on a fault."""
+    rec_gpu = {"losses": torch.stack(rec_gpu["losses"]).cpu(),
+               "grads": rec_gpu["grads"]}
+    rec_cpu = {"losses": torch.stack(rec_cpu["losses"]).cpu(),
+               "grads": rec_cpu["grads"]}
+    updates = len(rec_cpu["losses"])
+    if len(rec_gpu["losses"]) != updates or updates != 24:
+        raise AssertionError(f"ppo {model}: {len(rec_gpu['losses'])} and "
+                             f"{updates} updates, not PPOConfig's 24")
     first_loss_err = max_err(rec_gpu["losses"][0], rec_cpu["losses"][0],
                              2e-5)
     loss_err = max_err(rec_gpu["losses"], rec_cpu["losses"], 2e-5)
     grad_err = max(max_err(rec_gpu["grads"][k], g, 1e-4)
                    for k, g in rec_cpu["grads"].items())
-    got, want = gpu.get_params(), cpu.get_params()
     ties, later, param_err, tie_err, faults = 0, {}, 0.0, 0.0, []
     for k, sub in want.items():
         for kk, w in sub.items():
@@ -2155,6 +2172,28 @@ def ppo_parity(card: str, model: str, obs_shape, n_act: int) -> dict:
         log(f"ppo {model}: " + json.dumps(row))
         raise AssertionError(f"ppo {model}: {faults}, ties moved up to "
                              f"{tie_err} ({updates} updates at lr {cfg.lr})")
+    return row
+
+
+def ppo_parity(card: str, model: str, obs_shape, n_act: int) -> dict:
+    """PPOConfig's defaults (batch 1024, minibatch 256, 6 epochs: 24
+    updates) on the card and on the CPU from the same numpy params, held
+    by hold_ppo_updates. Then a second learn() on the card, timed."""
+    cfg = PPOConfig(model=model)
+    spec = get_model(model)
+    obs_in = obs_shape if model == "atari_cnn" else obs_shape[0]
+    params = spec.init_params(obs_in, n_act, spec.default_hidden, cfg.seed)
+    batch = ppo_batch(obs_shape, n_act, cfg.train_batch_size)
+    sides = {}
+    for device in ("cuda", "cpu"):
+        learner = PPOLearner(cfg, obs_in, n_act, params=params, device=device)
+        rec = record_updates(learner)
+        learner.learn(batch, iteration=0)
+        sides[device] = (learner, rec)
+    (gpu, rec_gpu), (cpu, rec_cpu) = sides["cuda"], sides["cpu"]
+    row = hold_ppo_updates(card, model, obs_shape, cfg, gpu.get_params(),
+                           rec_gpu, cpu.get_params(), rec_cpu)
+    updates = cpu.updates
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gpu.learn(batch, iteration=1)   # ends in a host read
@@ -3513,6 +3552,321 @@ def elastic_phase(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: RL on the runtime (rollout actors, the LearnerGroup, the
+# on-policy algorithms)
+# ---------------------------------------------------------------------------
+
+RL_ITERS, RL_GROUP_ITERS = 3, 2
+RL_LOSS_KEYS = ("loss", "pi_loss", "pg_loss", "vf_loss", "entropy",
+                "mean_loss", "mean_rho", "mean_ratio")
+
+
+def timed_calls(obj, name: str) -> list:
+    """Wraps obj.<name> (an instance attribute over the class's method)
+    so that each call's seconds, the card synchronised after it, are
+    kept in the returned list."""
+    real, times = getattr(obj, name), []
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, call)
+    return times
+
+
+def rl_finite(what: str, result: dict) -> None:
+    bad = {k: result[k] for k in RL_LOSS_KEYS
+           if k in result and not math.isfinite(result[k])}
+    if bad or not any(k in result for k in RL_LOSS_KEYS):
+        raise AssertionError(f"rl {what}: loss terms {bad or 'missing'} in "
+                             f"{result}")
+
+
+def rl_worker_states(rt, workers) -> list:
+    """Each rollout worker's process state; fails on a CUDA context or
+    a banned package."""
+    states = rt.get([w.process_state.remote() for w in workers], timeout=60)
+    for st in states:
+        banned = sorted(set(st["packages"]) & set(RUNTIME_BANNED))
+        if st["cuda_initialized"] or banned:
+            raise AssertionError(f"rl: a rollout worker has CUDA "
+                                 f"{st['cuda_initialized']}, loaded {banned}")
+    return [{"cuda_initialized": st["cuda_initialized"],
+             "threads": st["threads"]} for st in states]
+
+
+def rl_row(what: str, results: list, iter_s: float, learn: list,
+           updates: int | None = None, comm: list | None = None) -> dict:
+    """An algorithm's figures: learn seconds (the learner's timed calls,
+    else the results' own), sample seconds (the results' own, else the
+    rest of the iterations' time), samples/s and updates/s; for a
+    LearnerGroup its gradient mean's ms and bytes an update."""
+    # IMPALA and APPO report timesteps_total only; they run one iteration.
+    steps = sum(r.get("timesteps_this_iter", r.get("timesteps_total", 0))
+                for r in results)
+    learn_s = sum(learn) if learn else \
+        sum(r["learn_time_s"] for r in results)
+    sample_s = sum(r["sample_time_s"] for r in results) \
+        if all("sample_time_s" in r for r in results) else iter_s - learn_s
+    updates = len(learn) if updates is None else updates
+    row = {"algo": what, "iterations": len(results), "samples": steps,
+           "sample_time_s": sample_s, "learn_time_s": learn_s,
+           "samples_per_s": steps / sample_s if sample_s > 0 else None,
+           "updates": updates,
+           "updates_per_s": updates / learn_s if learn_s > 0 else None,
+           "last": {k: results[-1][k] for k in RL_LOSS_KEYS
+                    if k in results[-1]}}
+    if len(results) > 1:    # the first iteration warms the card's libraries
+        row["per_iteration"] = [
+            {k: r.get(k) for k in ("sample_time_s", "learn_time_s")}
+            for r in results]
+    if learn:
+        row["update_ms_median"] = 1e3 * statistics.median(learn)
+    if comm:
+        n = max(c["updates"] for c in comm)
+        row.update(grad_mean_ms_per_update=max(
+            1e3 * c["allreduce_s"] / max(1, c["updates"]) for c in comm),
+            grad_mean_bytes_per_update=comm[0]["allreduce_bytes"] // max(1, n))
+    log(f"rl {what}: " + json.dumps(row))
+    return row
+
+
+def rl_ppo_driver(rt, card: str) -> dict:
+    """(a) PPO at RLlib's Atari config (atari_cnn, hidden 256, on
+    VisualCatch-v0, PPOConfig's defaults), the learner in the driver on
+    the card, RL_ITERS iterations; the first iteration's 24 updates run
+    again on the CPU from the same batch and params, held as phase 14
+    holds them."""
+    cfg = PPOConfig(env="VisualCatch-v0", model="atari_cnn")
+    algo = cfg.build()
+    first = {}
+    try:
+        learner = algo.learner
+        first["params"] = learner.get_params()
+        real = learner.learn
+
+        def learn(batch, iteration):
+            if "batch" in first:
+                return real(batch, iteration)
+            first["batch"] = {k: np.array(v) for k, v in batch.items()}
+            first["rec"] = record_updates(learner)
+            out = real(batch, iteration)
+            del learner.update          # the class's update again
+            first["after"] = learner.get_params()
+            return out
+
+        learner.learn = learn
+        t0 = time.perf_counter()
+        results = [algo.train() for _ in range(RL_ITERS)]
+        iter_s = time.perf_counter() - t0
+        workers = rl_worker_states(rt, algo.workers)
+    finally:
+        algo.stop()
+    for r in results:
+        rl_finite("ppo", r)
+    cpu = PPOLearner(cfg, algo.obs_size, algo.num_actions,
+                     params=first["params"], device="cpu")
+    rec_cpu = record_updates(cpu)
+    cpu.learn(first["batch"], 0)
+    held = hold_ppo_updates(card, "atari_cnn", algo.obs_size, cfg,
+                            first["after"], first["rec"], cpu.get_params(),
+                            rec_cpu)
+    log("rl ppo first iteration, card against CPU: " + json.dumps(held))
+    row = rl_row("ppo", results, iter_s, [],
+                 updates=RL_ITERS * cfg.num_sgd_iter * -(
+                     -cfg.train_batch_size // cfg.sgd_minibatch_size))
+    row.update(rollout_workers=workers, results=results)
+    return row
+
+
+def mean_grad_step(cfg, obs_in, n_act, params: dict, shards: list) -> dict:
+    """The LearnerGroup's first step computed on the CPU: each shard's
+    PPO gradient from `params`, their f32 mean (sum, then / n), one Adam
+    step."""
+    from ray_tpu_torch.rllib.ppo import sorted_items
+
+    learner = PPOLearner(cfg, obs_in, n_act, params=params, device="cpu")
+    order = [t for _, t in sorted_items(learner.params)]
+    total = None
+    for s in shards:
+        learner.optimizer.zero_grad(set_to_none=True)
+        loss, _ = learner._loss_fn(learner.params, learner._batch(s))
+        loss.backward()
+        flat = torch.cat([t.grad.reshape(-1) for t in order])
+        total = flat if total is None else total + flat
+    mean = total / len(shards)
+    off = 0
+    for t in order:
+        t.grad = mean[off:off + t.numel()].view_as(t)
+        off += t.numel()
+    learner.optimizer.step()
+    return learner.get_params(), {f"{'/'.join(p)}": t.grad.numpy()
+                                  for p, t in sorted_items(learner.params)}
+
+
+def hold_first_group_step(cfg, got: dict, want: dict, grads: dict) -> dict:
+    """The group's params after its first step against the CPU's mean-
+    gradient step: within 1e-4, but at first-step ties (a mean gradient
+    under Adam's eps and not 0, which Adam's first step moves by up to lr
+    either way), at most 1% of a parameter's elements, held to 2 lr. A
+    gradient that is exactly 0 (a pixel that is 0 in every frame under a
+    weight) moves nothing on either side and is held to 1e-4."""
+    err, ties, faults = 0.0, 0, []
+    for k, sub in want.items():
+        for kk, w in sub.items():
+            g = got[k][kk]
+            gr = grads[f"{k}/{kk}"]
+            tie = (gr != 0) & (np.abs(gr) < 1e-8)
+            off = np.abs(g - w) > 1e-4 * (1 + np.abs(w))
+            ties += int(tie.sum())
+            if (off & ~tie).any() or tie.sum() > max(1, tie.size // 100) or \
+                    (np.abs(g - w)[tie] > 2 * cfg.lr + 1e-4).any():
+                faults.append(f"{k}/{kk}: {int((off & ~tie).sum())} off, "
+                              f"{int(tie.sum())} ties")
+            err = max(err, float(np.abs(g - w)[~tie].max(initial=0.0)))
+    if faults:
+        raise AssertionError(f"rl ppo group: first step against the CPU's "
+                             f"mean-gradient step: {faults}")
+    return {"first_step_param_err": err, "first_step_ties": ties}
+
+
+def rl_ppo_group(rt) -> dict:
+    """(b) the same config with num_learners=2: two learners on half the
+    card each over gloo, RL_GROUP_ITERS iterations; the fingerprints
+    equal after every update; the first update_shards against the
+    mean-gradient step computed on the CPU from the same shards."""
+    cfg = PPOConfig(env="VisualCatch-v0", model="atari_cnn", num_learners=2)
+    algo = cfg.build()
+    first, unequal, checked = {}, [], [0]
+    try:
+        group = algo._learner_group
+        if (group.backend, group.num_gpus) != ("gloo", 0.5):
+            raise AssertionError(f"rl ppo group: {group.backend} with "
+                                 f"{group.num_gpus} of a card a learner")
+        first["params"] = group.get_params()
+        learn = timed_calls(group, "update_shards")
+        real = group.update_shards
+
+        def update_shards(shards):
+            out = real(shards)
+            if "after" not in first:
+                first["shards"] = shards
+                first["after"] = group.get_params()
+            fps = group.fingerprints()
+            checked[0] += 1
+            if len(set(fps)) != 1:
+                unequal.append((checked[0], fps))
+            return out
+
+        group.update_shards = update_shards
+        t0 = time.perf_counter()
+        results = [algo.train() for _ in range(RL_GROUP_ITERS)]
+        iter_s = time.perf_counter() - t0
+        comm = group.comm_stats()
+    finally:
+        algo.stop()
+    for r in results:
+        rl_finite("ppo group", r)
+    if unequal or checked[0] != len(learn):
+        raise AssertionError(f"rl ppo group: fingerprints differ after "
+                             f"updates {unequal}")
+    want, grads = mean_grad_step(cfg, algo.obs_size, algo.num_actions,
+                                 first["params"], first["shards"])
+    held = hold_first_group_step(cfg, first["after"], want, grads)
+    row = rl_row("ppo_group", results, iter_s, learn, comm=comm)
+    row.update(fingerprints_checked=checked[0], **held)
+    return row
+
+
+def rl_algorithms(rt) -> list:
+    """(c) one iteration each at the configs' defaults on CartPole, the
+    learners on the card: IMPALA with num_learners=2, APPO, PG, A2C,
+    A3C; then one ES and one ARS iteration (numpy on CPU actors)."""
+    from ray_tpu_torch.rllib import (A2CConfig, A3CConfig, APPOConfig,
+                                     ARSConfig, ESConfig, ImpalaConfig,
+                                     PGConfig)
+
+    rows = []
+    for name, cfg in (("impala_group", ImpalaConfig(num_learners=2)),
+                      ("appo", APPOConfig()), ("pg", PGConfig()),
+                      ("a2c", A2CConfig()), ("a3c", A3CConfig()),
+                      ("es", ESConfig()), ("ars", ARSConfig())):
+        algo = cfg.build()
+        comm = None
+        try:
+            group = getattr(algo, "_learner_group", None)
+            learner = getattr(algo, "learner", None)
+            learn = timed_calls(group, "update_shards") if group else \
+                timed_calls(learner, "update") if learner else []
+            t0 = time.perf_counter()
+            result = algo.train()
+            iter_s = time.perf_counter() - t0
+            if group:
+                comm = group.comm_stats()
+        finally:
+            algo.stop()
+        if name in ("es", "ars"):
+            if not math.isfinite(result["episode_reward_mean"]):
+                raise AssertionError(f"rl {name}: {result}")
+            row = {"algo": name, "evaluations": 2 * cfg.population,
+                   "samples": result["timesteps_this_iter"],
+                   "iter_s": iter_s,
+                   "samples_per_s": result["timesteps_this_iter"] / iter_s,
+                   "episode_reward_mean": result["episode_reward_mean"]}
+            log(f"rl {name}: " + json.dumps(row))
+            rows.append(row)
+            continue
+        rl_finite(name, result)
+        rows.append(rl_row(name, [result], iter_s, learn, comm=comm))
+    return rows
+
+
+def rl_runtime_phase(card: str) -> dict:
+    """Phase 19. RLlib's on-policy algorithms on the port's runtime with
+    its defaults: (a) PPO at RLlib's Atari config, the learner in the
+    driver; (b) the same on a 2-learner LearnerGroup; (c) IMPALA, APPO,
+    PG, A2C, A3C, ES and ARS. No kernel lies on this path (MLPs and a
+    CNN): this process's kernel counts over the phase are returned (0).
+    After the shutdown no process of the phase's cluster is left."""
+    import ray_tpu_torch as rt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    if banned_loaded():
+        raise AssertionError(f"rl: the driver loaded {banned_loaded()}")
+    t0 = time.perf_counter()
+    rt.init()
+    try:
+        init_s = time.perf_counter() - t0
+        ppo = rl_ppo_driver(rt, card)
+        group = rl_ppo_group(rt)
+        others = rl_algorithms(rt)
+        if banned_loaded():
+            raise AssertionError(f"rl: the driver loaded {banned_loaded()}")
+    finally:
+        procs = cluster_processes(rt._runtime_node)
+        t_down = time.perf_counter()
+        rt.shutdown()
+    deadline = time.time() + 60
+    while still_running(procs) and time.time() < deadline:
+        time.sleep(0.05)
+    if still_running(procs):
+        raise AssertionError(f"rl: processes left after shutdown: "
+                             f"{still_running(procs)}")
+    log("rl runtime: " + json.dumps({
+        "card": card, "init_s": init_s, "cluster_processes": len(procs),
+        "shutdown_s": time.perf_counter() - t_down,
+        "algorithms": [r["algo"] for r in [ppo, group, *others]]}))
+    return {**dict(pa.launch_counts), **dict(fa.launch_counts)}
+
+
 def run_phase(name: str, fn, *args):
     """Runs one phase; logs its time and peak device memory, then frees
     what it left in the allocator's cache."""
@@ -3565,12 +3919,14 @@ def main():
     disagg_serve_counts = run_phase("disaggregated serving",
                                     disagg_serving_phase, card)
     elastic_counts = run_phase("elastic gang", elastic_phase, card)
+    rl_counts = run_phase("rl on the runtime", rl_runtime_phase, card)
 
     for name, row in rows.items():
         row["launches"] = counts[name]
         row["disagg_launches"] = disagg_launches[name]
         row["runtime_launches"] = runtime_launches[name]
         row["disagg_serve_launches"] = disagg_serve_counts[name]
+        row["rl_launches"] = rl_counts[name]
     for name, row in flash_rows.items():
         row["launches"] = flash_counts[name]
         row["sharded_launches"] = sharded_counts[name]
@@ -3581,6 +3937,7 @@ def main():
         row["checkpoint_launches"] = ckpt_counts[name]
         row["gang_launches"] = gang_counts[name]
         row["elastic_launches"] = elastic_counts[name]
+        row["rl_launches"] = rl_counts[name]
     print(json.dumps({"kernels": [rows[n] for n in KERNELS]
                       + [flash_rows[n] for n in FLASH_KERNELS]}))
     print(card_line())

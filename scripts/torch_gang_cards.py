@@ -31,15 +31,23 @@ cards of one host, on the port's runtime (ray_tpu_torch.init()).
    resizes' seconds, and the route each hand-off took (between cards:
    the collective route, a fresh NCCL pair a pull).
 
+5. rllib - PPO at chip_smoke.py phase 19's config (RLlib's Atari config:
+   atari_cnn, hidden 256, on VisualCatch-v0, PPOConfig's defaults) with
+   num_learners=4: a LearnerGroup of four learners, a whole card each,
+   over NCCL; two iterations. The fingerprints must be equal after every
+   update; prints each learner's gradient mean in ms and bytes an
+   update, and samples/s and updates/s.
+
 Prints one JSON line with the card's name and power limit; any failure
 ends the run non-zero. Run from the repository root on a host with 2 or
-more cards (step 4 needs 4):
+more cards (steps 4 and 5 need 4):
 
     python3 scripts/torch_gang_cards.py
 
-`--cpu` runs steps 3 and 4 on gloo workers at tiny widths on the CPU
-(landings, weights and states by the host route; step 2 needs cards), a
-rehearsal without cards. `--only elastic` runs step 4 alone.
+`--cpu` runs steps 3-5 on gloo workers at tiny widths on the CPU
+(landings, weights and states by the host route; step 2 needs cards; step
+5 at its full widths, its learners on the CPU), a rehearsal without
+cards. `--only elastic` runs step 4 alone, `--only rllib` step 5.
 """
 
 from __future__ import annotations
@@ -318,12 +326,83 @@ def elastic_run(cfg, cpu: bool) -> dict:
     return out
 
 
+RL_ITERS = 2
+
+
+def rllib_run(cpu: bool) -> dict:
+    """Step 5: PPO's LearnerGroup of four, a card each, over NCCL."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import PPOConfig
+
+    cfg = PPOConfig(env="VisualCatch-v0", model="atari_cnn", num_learners=4)
+    rt.init(num_cpus=8) if cpu else rt.init()
+    try:
+        algo = cfg.build(device="cpu" if cpu else None)
+        try:
+            group = algo._learner_group
+            want = ("gloo", 0) if cpu else ("nccl", 1)
+            if (group.backend, group.num_gpus) != want:
+                raise AssertionError(f"gang cards: rllib group on "
+                                     f"{group.backend}, {group.num_gpus} "
+                                     "of a card a learner")
+            real, checks = group.update_shards, []
+
+            def update_shards(shards):
+                out = real(shards)
+                checks.append(len(set(group.fingerprints())) == 1)
+                return out
+
+            group.update_shards = update_shards
+            t0 = time.perf_counter()
+            results, comms = [], []
+            for _ in range(RL_ITERS):
+                results.append(algo.train())
+                comms.append(group.comm_stats())
+            iter_s = time.perf_counter() - t0
+            visible = rt.get([a.process_state.remote()
+                              for a in algo.workers], timeout=60)
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+    learn_s = sum(r["learn_time_s"] for r in results)
+    sample_s = sum(r["sample_time_s"] for r in results)
+    steps = sum(r["timesteps_this_iter"] for r in results)
+    out = {"learners": 4, "backend": group.backend,
+           "iterations": RL_ITERS, "iter_s": iter_s, "updates": len(checks),
+           "fingerprints_equal_every_update": all(checks),
+           "sample_time_s": sample_s, "learn_time_s": learn_s,
+           "samples_per_s": steps / sample_s,
+           "updates_per_s": len(checks) / learn_s,
+           "per_iteration": [{k: r[k] for k in ("sample_time_s",
+                                                 "learn_time_s")}
+                             for r in results],
+           # Each learner's mean over all updates, and over the last
+           # iteration's alone (the first allreduce sets NCCL up).
+           "grad_mean_ms_per_update": [
+               1e3 * c["allreduce_s"] / c["updates"] for c in comms[-1]],
+           "grad_mean_ms_per_update_last_iteration": [
+               1e3 * (c["allreduce_s"] - p["allreduce_s"])
+               / (c["updates"] - p["updates"])
+               for c, p in zip(comms[-1], comms[-2])],
+           "grad_mean_bytes_per_update": comms[-1][0]["allreduce_bytes"]
+           // comms[-1][0]["updates"],
+           "rollout_workers_cuda": [v["cuda_initialized"] for v in visible],
+           "losses": [{k: r[k] for k in ("loss", "pi_loss", "vf_loss",
+                                          "entropy")} for r in results]}
+    if not all(checks) or not checks or any(out["rollout_workers_cuda"]) \
+            or not all(np.isfinite(v) for r in out["losses"]
+                       for v in r.values()):
+        raise AssertionError(f"gang cards: rllib run {out}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
                     help="gloo workers at tiny widths on the CPU")
-    ap.add_argument("--only", choices=("elastic",),
-                    help="run step 4 alone")
+    ap.add_argument("--only", choices=("elastic", "rllib"),
+                    help="run step 4 or step 5 alone")
     args = ap.parse_args()
     import ray_tpu_torch as rt
     from ray_tpu_torch._vendor import cloudpickle
@@ -340,10 +419,11 @@ def main():
     else:
         if torch.cuda.device_count() < (4 if args.only else 2):
             sys.exit("torch_gang_cards: needs 2 or more cards (4 for "
-                     "step 4)")
+                     "steps 4 and 5)")
         cfg = chip_smoke.TRAIN_CFG
         card = chip_smoke.card_line()
-        chip_smoke._build.build_all()
+        if args.only != "rllib":    # step 5 runs no kernel
+            chip_smoke._build.build_all()
     plane = gang = None
     if not args.only:
         if args.cpu:
@@ -358,13 +438,16 @@ def main():
             gang = gang_run(rt, cfg, args.cpu, baseline)
         finally:
             rt.shutdown()
-    elastic = None
-    if args.cpu or torch.cuda.device_count() >= 4:
+    elastic = rllib = None
+    four = args.cpu or torch.cuda.device_count() >= 4
+    if four and args.only in (None, "elastic"):
         elastic = elastic_run(cfg if args.cpu else chip_smoke.CKPT_CFG,
                               args.cpu)
+    if four and args.only in (None, "rllib"):
+        rllib = rllib_run(args.cpu)
     print(json.dumps({"card": card, "cards": torch.cuda.device_count(),
                       "device_plane": plane, "gang": gang,
-                      "elastic": elastic}), flush=True)
+                      "elastic": elastic, "rllib": rllib}), flush=True)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,13 @@ its next step bitwise as the uninterrupted state does. PPOLearner and
 MARWIL on the card against the same learners on the CPU from the same
 numpy params, TF32 off: losses within 2e-5, parameters after the updates
 within 1e-4 but at first-step ties (a first gradient that differs and is
-under Adam's eps on either side), held to 2 lr a step.
+under Adam's eps on either side), held to 2 lr a step. On the port's
+runtime (ray_tpu_torch.init, 4 CPUs and the node's cards): a LearnerGroup
+of two learners on the card (over gloo on one card, each a half share;
+NCCL where there is a card each) against the same group on the CPU from
+the same seed, two update_shards steps: losses within 2e-5, params
+within 1e-4, the card's learners' fingerprints equal. IMPALA's learner on
+the card against the CPU, three steps on seeded fragments.
 """
 
 import dataclasses
@@ -23,6 +29,9 @@ torch = pytest.importorskip("torch")
 from ray_tpu_torch.models import TINY, cross_entropy_loss  # noqa: E402
 from ray_tpu_torch.rllib import (MARWILConfig, PPOConfig,  # noqa: E402
                                  PPOLearner, get_model, write_offline_json)
+from ray_tpu_torch.rllib.impala import ImpalaConfig, make_impala_loss  # noqa: E402
+from ray_tpu_torch.rllib.learner_group import LearnerGroup  # noqa: E402
+from ray_tpu_torch.rllib.ppo import TorchLearner, init_policy_params  # noqa: E402
 from ray_tpu_torch.train import (adamw, init_train_state,  # noqa: E402
                                  make_train_step)
 from ray_tpu_torch.train.checkpoint import restore_pytree, save_pytree  # noqa: E402
@@ -123,3 +132,81 @@ def test_marwil_on_the_card_matches_the_cpu(cuda, tmp_path):
     for k in ("loss", "pi_loss", "vf_loss", "mean_weight"):
         np.testing.assert_allclose(results[0][k], results[1][k], rtol=2e-5,
                                    atol=2e-5, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def rt():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=4)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                   else {prefix + k: np.asarray(v)})
+    return out
+
+
+def test_learner_group_on_the_card_matches_the_cpu(rt):
+    shards = [[_batch((4,), 2, 32, seed=2 * i + j) for j in range(2)]
+              for i in range(2)]
+    groups = [LearnerGroup(num_learners=2, model="mlp", obs_size=4,
+                           num_actions=2, hidden=64, lr=1e-3,
+                           entropy_coeff=0.01, device=d)
+              for d in (None, "cpu")]
+    try:
+        card, cpu = groups
+        want = ("nccl", 1) if torch.cuda.device_count() >= 2 \
+            else ("gloo", 0.5)
+        assert (card.backend, card.num_gpus) == want
+        for step in shards:
+            got, ref = (g.update_shards(step) for g in groups)
+            for k in ref:
+                np.testing.assert_allclose(got[k], ref[k], rtol=2e-5,
+                                           atol=2e-5, err_msg=k)
+            fps = card.fingerprints()
+            assert fps[0] == fps[1]
+        got, ref = _flat(card.get_params()), _flat(cpu.get_params())
+        for k, w in ref.items():
+            np.testing.assert_allclose(got[k], w, rtol=1e-4, atol=1e-4,
+                                       err_msg=k)
+        assert all(s["updates"] == 2 and s["allreduce_bytes"] > 0
+                   for s in card.comm_stats())
+    finally:
+        for g in groups:
+            g.shutdown()
+
+
+def test_impala_update_on_the_card_matches_the_cpu(cuda):
+    cfg = ImpalaConfig()
+    loss = make_impala_loss(gamma=cfg.gamma, vf_coeff=cfg.vf_coeff,
+                            entropy_coeff=cfg.entropy_coeff,
+                            clip_rho=cfg.vtrace_clip_rho,
+                            clip_c=cfg.vtrace_clip_c)
+    params = init_policy_params(4, 2, cfg.hidden_size, 0)
+    learners = [TorchLearner(params, loss, cfg.lr, d) for d in (cuda, "cpu")]
+    for i in range(3):
+        rng = np.random.default_rng(i)
+        n = cfg.rollout_fragment_length
+        frag = {"obs": rng.standard_normal((n, 4)).astype(np.float32),
+                "actions": rng.integers(0, 2, n).astype(np.int32),
+                "behavior_logp": np.full(n, np.log(0.5), np.float32),
+                "rewards": rng.standard_normal(n).astype(np.float32),
+                "dones": (rng.random(n) < 0.05).astype(np.float32),
+                "bootstrap_obs": rng.standard_normal(4).astype(np.float32)}
+        outs = [learner.update(frag) for learner in learners]
+        np.testing.assert_allclose(outs[0][0].item(), outs[1][0].item(),
+                                   rtol=2e-5, atol=2e-5)
+        for k, v in outs[1][1].items():
+            np.testing.assert_allclose(outs[0][1][k].item(), v.item(),
+                                       rtol=2e-5, atol=2e-5, err_msg=k)
+    got, want = (_flat(learner.get_params()) for learner in learners)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, rtol=1e-4, atol=1e-4,
+                                   err_msg=k)

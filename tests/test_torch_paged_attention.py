@@ -193,7 +193,13 @@ def test_import_loads_no_jax_and_no_cuda():
         "ray_tpu_torch.train.trainer, ray_tpu_torch.train.worker_group, "
         "ray_tpu_torch.train.session, ray_tpu_torch.train.config, "
         "ray_tpu_torch.cluster_utils, ray_tpu_torch.test_utils, "
-        "ray_tpu_torch.serve.rpc_ingress, ray_tpu_torch.serve.config_deploy\n"
+        "ray_tpu_torch.serve.rpc_ingress, ray_tpu_torch.serve.config_deploy, "
+        "ray_tpu_torch.rllib, ray_tpu_torch.rllib.learner_group, "
+        "ray_tpu_torch.rllib.impala, ray_tpu_torch.rllib.appo, "
+        "ray_tpu_torch.rllib.pg, ray_tpu_torch.rllib.a2c, "
+        "ray_tpu_torch.rllib.a3c, ray_tpu_torch.rllib.es, "
+        "ray_tpu_torch.rllib.connectors, ray_tpu_torch.rllib.env_runner, "
+        "ray_tpu_torch.rllib.bandit, ray_tpu_torch.rllib.random_agent\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                  'orbax', 'ray_tpu', 'msgpack',\n"
