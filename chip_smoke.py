@@ -295,6 +295,30 @@ Phases, in order; a failure in any of them ends the run with an error:
              `rl_launches` are this process's counts over the phase (0).
              After the shutdown no process of the phase's cluster is
              left.
+20. off-policy rl - run after 19, on ray_tpu_torch.init()'s defaults,
+             TF32 off. DQN, SimpleQ, Ape-X, Rainbow and R2D2 on CartPole,
+             TD3, DDPG and SAC on Pendulum, MADDPG on CoopNav, SlateQ on
+             SlateDocEnv and AlphaZero on TicTacToe, each at its config's
+             defaults (the reference's widths), XConfig().build() with
+             the learner in the driver on the card, train() until an
+             iteration updates (its learning_starts or batch size met);
+             then CQL and CRR at their defaults on phase 14's 30 CartPole
+             episodes written by write_offline_json. The first updating
+             iteration's updates run again on the CPU from the same state
+             trees, batches and noise: every output (losses, Ape-X's and
+             Rainbow's new priorities) within 2e-5, every parameter,
+             target and log_alpha within 1e-4 but at ties, as phase 14;
+             every loss finite; the rollout and self-play actors report
+             no CUDA context and no banned package, nor does the driver.
+             Logs each algorithm's samples/s, updates/s and median ms an
+             update. No kernel lies on this path: the kernels line's
+             `offpolicy_launches` are this process's counts over the
+             phase (0). After the shutdown no process of the phase's
+             cluster is left.
+Phase 4b also holds the dense engine's prefills to the device plane:
+each hands its KV to decode by local_handoff, so the plane's in_process
+counter rises by at least 2 x n_layers a prefill and host_fallback stays
+0.
 
 Prints the kernels as one JSON line (a paged kernel's `launches` from
 the serving phase, graph replays included; a flash kernel's from the
@@ -305,7 +329,8 @@ steps, `dit_sample_launches` from the sampler's run and
 `checkpoint_launches` from phase 13's run A, `gang_launches` from
 phase 16's gang worker, `elastic_launches` from phase 18's workers; a
 paged kernel's `disagg_launches` from phase 12's hand-offs, every
-kernel's `rl_launches` from phase 19 (0: no kernel on the RL path),
+kernel's `rl_launches` from phase 19 and `offpolicy_launches` from
+phase 20 (0: no kernel on the RL paths),
 `runtime_launches` from phase 15's replica and `disagg_serve_launches`
 from phase 17's decode replicas; a flash kernel's `dit_shape`
 the times at DiT-XL/2's attention, B 32, H 16, S 256, D 72, non-causal),
@@ -959,13 +984,34 @@ def serving_modes_phase(card: str, params) -> None:
     the dense engine serves the serving phase's requests, chunked prefill
     keeps short streams emitting, and drained streams resume in an engine
     of the other mode, both ways."""
+    from ray_tpu_torch._private import device_objects
+
     cfg = LLAMA3_8B
     server = LLMServer(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
                        decode_chunk=CHUNK)
+    eng, prefills = server.engine, [0]
+    real_prefill = eng._prefill_one
+
+    def prefill_one(tokens):
+        prefills[0] += 1
+        return real_prefill(tokens)
+
+    eng._prefill_one = prefill_one
+    before = device_objects.counters()
     try:
         run = serve_payloads(server, cfg)
     finally:
         server.engine.shutdown()
+    after = device_objects.counters()
+    # Every dense prefill hands its KV (a K and a V a layer) to decode
+    # through the device plane's same-process route, never the host's.
+    plane = {k: after[k] - before[k]
+             for k in ("in_process", "released", "host_fallback")}
+    run["device_plane"] = {"dense_prefills": prefills[0], **plane}
+    if not prefills[0] or plane["host_fallback"] or \
+            plane["in_process"] < 2 * cfg.n_layers * prefills[0]:
+        raise AssertionError(f"serving modes: the dense prefills' KV "
+                             f"hand-offs: {run['device_plane']}")
     log("serving modes: dense engine: " + json.dumps({"card": card, **run}))
     log("serving modes: chunked prefill: "
         + json.dumps(chunked_prefill_check(cfg, params)))
@@ -3867,6 +3913,261 @@ def rl_runtime_phase(card: str) -> dict:
     return {**dict(pa.launch_counts), **dict(fa.launch_counts)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: off-policy RL on the runtime (replay, the Q-learning family,
+# the actor-critics, MADDPG, SlateQ, AlphaZero) and the offline CQL and CRR
+# ---------------------------------------------------------------------------
+
+OFFPOLICY_MAX_ITERS = 6     # iterations allowed to reach one with updates
+
+
+def to_host(x):
+    """A copy of an update's argument on the host: tensors to the CPU,
+    arrays copied, dicts, lists and tuples rebuilt."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    if isinstance(x, dict):
+        return {k: to_host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_host(v) for v in x)
+    return x
+
+
+def output_tensors(out) -> list:
+    """The tensors an update returned (its losses, and Ape-X's and
+    Rainbow's new priorities), in a fixed order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in output_tensors(out[k])]
+    if isinstance(out, (list, tuple)):
+        return [t for v in out for t in output_tensors(v)]
+    return []
+
+
+def learner_trees(learner) -> dict:
+    """A learner's state trees: params, and where it has them the target,
+    CRR's critic and its target, SAC's log_alpha."""
+    trees = {k: getattr(learner, k) for k in
+             ("params", "target", "q_params", "q_target")
+             if hasattr(learner, k)}
+    if hasattr(learner, "log_alpha") and isinstance(learner.log_alpha,
+                                                     torch.Tensor):
+        trees["log_alpha"] = {"log_alpha": learner.log_alpha}
+    return trees
+
+
+def record_first_updates(learner) -> dict:
+    """Wraps learner.update: every call timed (the card synchronised after
+    it); the calls of the first train() that updates recorded (their
+    arguments and outputs on the host) with the state trees from before
+    them, for the CPU to run again."""
+    from ray_tpu_torch.rllib.utils import tree_numpy
+
+    rec = {"times": [], "calls": [], "outs": [], "state": None,
+           "recording": False}
+    real = learner.update
+
+    def update(*args, **kwargs):
+        if rec["recording"] and rec["state"] is None:
+            rec["state"] = {k: tree_numpy(t)
+                            for k, t in learner_trees(learner).items()}
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec["times"].append(time.perf_counter() - t0)
+        if rec["recording"]:
+            rec["calls"].append((to_host(args), to_host(kwargs)))
+            rec["outs"].append([t.detach().cpu()
+                                for t in output_tensors(out)])
+        return out
+
+    learner.update = update
+    return rec
+
+
+def cpu_twin(name: str, algo):
+    """A learner of the same class and config as `algo`'s, on the CPU."""
+    lr, cfg = getattr(algo, "learner", algo), algo.config
+    if name in ("cql", "crr"):
+        return type(algo)(cfg, device="cpu")
+    if name == "alphazero":
+        return type(lr)(cfg, device="cpu")
+    if name == "slateq":
+        return type(lr)(cfg, algo.env.docs, algo.env.slate_size,
+                        algo.env.no_click_mass, device="cpu")
+    if name == "maddpg":
+        return type(lr)(cfg, algo.n_agents, algo.obs_size, algo.act_size,
+                        device="cpu")
+    if name in ("td3", "ddpg", "sac"):
+        return type(lr)(cfg, algo.obs_size, algo.act_size, device="cpu")
+    # DQN, SimpleQ, Ape-X, Rainbow, R2D2.
+    return type(lr)(cfg, algo.obs_size, algo.num_actions, device="cpu")
+
+
+def hold_offpolicy_updates(name: str, algo, rec: dict) -> dict:
+    """The first updating iteration's updates run again on the CPU from
+    the same state trees, batches and noise: every output within 2e-5;
+    every state tensor after them within 1e-4 but at ties (phase 14's
+    rule: at most 1% of a tensor's elements, held to 2 lr an update)."""
+    from ray_tpu_torch.rllib.ppo import load_tree, sorted_items
+
+    cfg = algo.config
+    twin = cpu_twin(name, algo)
+    trees = learner_trees(twin)
+    for k, values in rec["state"].items():
+        load_tree(trees[k], values)
+    outs = [[t.detach().cpu() for t in output_tensors(twin.update(*a, **kw))]
+            for a, kw in rec["calls"]]
+    try:
+        loss_err = max(max_err(g, w, 2e-5) for got, want in
+                       zip(rec["outs"], outs) for g, w in zip(got, want))
+    except AssertionError as e:
+        raise AssertionError(f"offpolicy {name}: an update's output on the "
+                             f"card against the CPU: {e}") from None
+    lr = max(getattr(cfg, k) for k in ("lr", "actor_lr", "critic_lr")
+             if hasattr(cfg, k))
+    card_trees = learner_trees(getattr(algo, "learner", algo))
+    updates = len(outs)
+    err, ties, faults = 0.0, 0, []
+    for k, tree in trees.items():
+        for (path, w), (_p, g) in zip(sorted_items(tree),
+                                      sorted_items(card_trees[k])):
+            w, g = w.detach().numpy(), g.detach().cpu().numpy()
+            off = np.abs(g - w) > 1e-4 * (1 + np.abs(w))
+            ties += int(off.sum())
+            if off.sum() > max(1, off.size // 100) or \
+                    np.abs(g - w)[off].max(initial=0.0) > 2 * lr * updates:
+                faults.append(f"{k}/{'/'.join(map(str, path))}: "
+                              f"{int(off.sum())} of {off.size} off")
+            err = max(err, float(np.abs(g - w)[~off].max(initial=0.0)))
+    row = {"updates_replayed": updates, "output_err": loss_err,
+           "state_err": err, "ties": ties}
+    if faults:
+        raise AssertionError(f"offpolicy {name}: card against CPU: "
+                             f"{faults}; {row}")
+    return row
+
+
+def offpolicy_run(rt, name: str, cfg) -> dict:
+    """An algorithm at its config's defaults, its learner on the card:
+    train() until an iteration updates (at most OFFPOLICY_MAX_ITERS),
+    that iteration's updates recorded and run again on the CPU. Returns
+    its row: iterations, samples and the seconds of sampling (an
+    iteration's time less its updates'), updates and their seconds, the
+    drift, the actors' process state."""
+    algo = cfg.build()
+    try:
+        learner = getattr(algo, "learner", algo)
+        rec = record_first_updates(learner)
+        results, iter_s, samples = [], [], 0
+        for _ in range(OFFPOLICY_MAX_ITERS):
+            seen = len(rec["times"])
+            rec["recording"] = rec["state"] is None
+            before = getattr(algo, "total_steps", getattr(algo, "size", 0))
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            iter_s.append(time.perf_counter() - t0)
+            samples += getattr(algo, "total_steps",
+                               getattr(algo, "size", 0)) - before
+            rec["recording"] = False
+            if len(rec["times"]) > seen:
+                break
+        workers = rl_worker_states(rt, algo.workers) \
+            if getattr(algo, "workers", None) else []
+    finally:
+        algo.stop()
+    if not rec["calls"]:
+        raise AssertionError(f"offpolicy {name}: no update in "
+                             f"{len(results)} iterations: {results[-1]}")
+    for r in results:
+        bad = {k: v for k, v in r.items() if isinstance(v, float)
+               and "loss" in k and not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"offpolicy {name}: {bad} in {r}")
+    for out in rec["outs"]:
+        if not all(torch.isfinite(t).all() for t in out):
+            raise AssertionError(f"offpolicy {name}: an update's output "
+                                 f"is not finite")
+    held = hold_offpolicy_updates(name, algo, rec)
+    learn_s = sum(rec["times"])
+    sample_s = sum(iter_s) - learn_s
+    row = {"algo": name, "iterations": len(results), "samples": samples,
+           "sample_time_s": sample_s,
+           "samples_per_s": samples / sample_s if sample_s > 0 and samples
+           else None,
+           "updates": len(rec["times"]), "learn_time_s": learn_s,
+           "updates_per_s": len(rec["times"]) / learn_s,
+           "update_ms_median": 1e3 * statistics.median(rec["times"]),
+           "iteration_s": iter_s, **held, "rollout_workers": workers,
+           "last": {k: v for k, v in results[-1].items()
+                    if "loss" in k or k in ("alpha", "entropy")}}
+    log(f"offpolicy {name}: " + json.dumps(row))
+    return row
+
+
+def offpolicy_phase(card: str) -> dict:
+    """Phase 20. RLlib's off-policy algorithms on the port's runtime with
+    its defaults, each at its config's defaults with its learner on the
+    card: DQN, SimpleQ, Ape-X, Rainbow and R2D2 on CartPole, TD3, DDPG and
+    SAC on Pendulum, MADDPG on CoopNav, SlateQ on SlateDocEnv, AlphaZero
+    on TicTacToe; then CQL and CRR on 30 CartPole episodes written by
+    write_offline_json. No kernel lies on this path: this process's
+    kernel counts over the phase are returned (0). After the shutdown no
+    process of the phase's cluster is left."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import (AlphaZeroConfig, ApexDQNConfig,
+                                     CQLConfig, CRRConfig, DDPGConfig,
+                                     DQNConfig, MADDPGConfig, R2D2Config,
+                                     RainbowConfig, SACConfig, SimpleQConfig,
+                                     SlateQConfig, TD3Config)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    if banned_loaded():
+        raise AssertionError(f"offpolicy: the driver loaded "
+                             f"{banned_loaded()}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_offpolicy_")
+    t0 = time.perf_counter()
+    rt.init()
+    try:
+        init_s = time.perf_counter() - t0
+        rows = [offpolicy_run(rt, name, cfg) for name, cfg in (
+            ("dqn", DQNConfig()), ("simple_q", SimpleQConfig()),
+            ("apex", ApexDQNConfig()), ("rainbow", RainbowConfig()),
+            ("r2d2", R2D2Config()), ("td3", TD3Config()),
+            ("ddpg", DDPGConfig()), ("sac", SACConfig()),
+            ("maddpg", MADDPGConfig()), ("slateq", SlateQConfig()),
+            ("alphazero", AlphaZeroConfig()))]
+        path = os.path.join(root, "cartpole.jsonl")
+        expert_data(path)
+        rows += [offpolicy_run(rt, "cql", CQLConfig(input_path=path)),
+                 offpolicy_run(rt, "crr", CRRConfig(input_path=path))]
+        if banned_loaded():
+            raise AssertionError(f"offpolicy: the driver loaded "
+                                 f"{banned_loaded()}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        procs = cluster_processes(rt._runtime_node)
+        t_down = time.perf_counter()
+        rt.shutdown()
+    deadline = time.time() + 60
+    while still_running(procs) and time.time() < deadline:
+        time.sleep(0.05)
+    if still_running(procs):
+        raise AssertionError(f"offpolicy: processes left after shutdown: "
+                             f"{still_running(procs)}")
+    log("offpolicy runtime: " + json.dumps({
+        "card": card, "init_s": init_s, "cluster_processes": len(procs),
+        "shutdown_s": time.perf_counter() - t_down,
+        "algorithms": [r["algo"] for r in rows]}))
+    return {**dict(pa.launch_counts), **dict(fa.launch_counts)}
+
+
 def run_phase(name: str, fn, *args):
     """Runs one phase; logs its time and peak device memory, then frees
     what it left in the allocator's cache."""
@@ -3920,6 +4221,7 @@ def main():
                                     disagg_serving_phase, card)
     elastic_counts = run_phase("elastic gang", elastic_phase, card)
     rl_counts = run_phase("rl on the runtime", rl_runtime_phase, card)
+    offpolicy_counts = run_phase("off-policy rl", offpolicy_phase, card)
 
     for name, row in rows.items():
         row["launches"] = counts[name]
@@ -3927,6 +4229,7 @@ def main():
         row["runtime_launches"] = runtime_launches[name]
         row["disagg_serve_launches"] = disagg_serve_counts[name]
         row["rl_launches"] = rl_counts[name]
+        row["offpolicy_launches"] = offpolicy_counts[name]
     for name, row in flash_rows.items():
         row["launches"] = flash_counts[name]
         row["sharded_launches"] = sharded_counts[name]
@@ -3938,6 +4241,7 @@ def main():
         row["gang_launches"] = gang_counts[name]
         row["elastic_launches"] = elastic_counts[name]
         row["rl_launches"] = rl_counts[name]
+        row["offpolicy_launches"] = offpolicy_counts[name]
     print(json.dumps({"kernels": [rows[n] for n in KERNELS]
                       + [flash_rows[n] for n in FLASH_KERNELS]}))
     print(card_line())

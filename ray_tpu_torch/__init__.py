@@ -40,7 +40,7 @@ from typing import Any, Sequence
 from ray_tpu_torch import exceptions
 from ray_tpu_torch._private import api_internal
 from ray_tpu_torch._private.api_internal import (ActorClass, ActorHandle,
-                                                 ObjectRef,
+                                                 DeviceObjectRef, ObjectRef,
                                                  ObjectRefGenerator)
 from ray_tpu_torch._private.config import Config
 
@@ -348,6 +348,6 @@ __all__ = [
     "ObjectRefGenerator",
     "kill", "cancel", "get_actor", "nodes", "cluster_resources",
     "available_resources", "get_runtime_context", "method",
-    "ObjectRef", "ActorHandle", "ActorClass", "Config",
+    "ObjectRef", "DeviceObjectRef", "ActorHandle", "ActorClass", "Config",
     "exceptions",
 ]

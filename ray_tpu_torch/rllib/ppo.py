@@ -19,7 +19,6 @@ never initialises CUDA.
 
 from __future__ import annotations
 
-import sys
 import time
 from dataclasses import dataclass
 from typing import Any
@@ -31,11 +30,8 @@ import ray_tpu_torch
 from ray_tpu_torch._device import device_context, resolve_device
 from ray_tpu_torch.rllib.catalog import get_model
 from ray_tpu_torch.rllib.env import make_env
-
-# torch's intra-op threads in a rollout worker: the one CPU its lease
-# holds (the default, every core, oversubscribes the host once two
-# workers run the CNN forward).
-ROLLOUT_THREADS = 1
+from ray_tpu_torch.rllib.utils import (ROLLOUT_THREADS,  # noqa: F401
+                                       CPUActor, leaves, tree_numpy)
 
 
 # ---------------- policy: MLP actor-critic ----------------
@@ -81,7 +77,7 @@ def _gae(rews, vals, dones, gamma, lam):
 
 
 @ray_tpu_torch.remote(num_cpus=1)
-class RolloutWorker:
+class RolloutWorker(CPUActor):
     """CPU sampling actor (parity: rllib/evaluation/rollout_worker.py).
 
     model="mlp" uses the catalog's numpy forward; other models (the CNN)
@@ -91,7 +87,7 @@ class RolloutWorker:
 
     def __init__(self, env_spec, worker_index: int, gamma: float, lam: float,
                  model: str = "mlp"):
-        torch.set_num_threads(ROLLOUT_THREADS)
+        super().__init__()
         self.env = make_env(env_spec)
         self.index = worker_index
         self.gamma = gamma
@@ -230,13 +226,6 @@ class RolloutWorker:
             "episode_returns": episode_returns,
         }
 
-    def process_state(self) -> dict:
-        """What this worker process has loaded: the top-level packages in
-        sys.modules, whether CUDA is initialised, torch's threads."""
-        return {"packages": sorted({m.split(".")[0] for m in sys.modules}),
-                "cuda_initialized": torch.cuda.is_initialized(),
-                "threads": torch.get_num_threads()}
-
 
 @dataclass
 class PPOConfig:
@@ -323,48 +312,43 @@ def make_ppo_loss(forward, clip_param: float, vf_coeff: float,
     return loss_fn
 
 
-def tensor_params(params: dict, device, trainable: bool = False) -> dict:
-    """A tree of numpy arrays (params, or Adam's moments) as f32 tensors
-    on `device`."""
-    return {k: tensor_params(v, device, trainable) if isinstance(v, dict)
-            else torch.tensor(np.asarray(v, np.float32), device=device,
-                              requires_grad=trainable)
-            for k, v in params.items()}
+def tensor_params(params, device, trainable: bool = False):
+    """A tree (dicts and lists) of numpy arrays (params, or Adam's
+    moments) as f32 tensors on `device`."""
+    if isinstance(params, dict):
+        return {k: tensor_params(v, device, trainable)
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [tensor_params(v, device, trainable) for v in params]
+    return torch.tensor(np.asarray(params, np.float32), device=device,
+                        requires_grad=trainable)
 
 
-def numpy_params(params: dict) -> dict:
-    """A params tree of tensors as numpy arrays (for the numpy forward),
-    copies: a CPU tensor's .numpy() would alias it, and the next update
-    would change the arrays handed out."""
-    return {k: numpy_params(v) if isinstance(v, dict)
-            else v.detach().to("cpu", copy=True).numpy()
-            for k, v in params.items()}
+# A params tree of tensors as numpy arrays (for the numpy forward), copied.
+numpy_params = tree_numpy
 
 
-def leaves(params: dict) -> list:
-    """The tree's tensors, in its keys' order."""
-    return [t for v in params.values()
-            for t in (leaves(v) if isinstance(v, dict) else [v])]
-
-
-def sorted_items(tree: dict, prefix: tuple = ()) -> list:
-    """(path, leaf) pairs in sorted-key order at every level: the order
-    of jax.tree_util.tree_leaves over the reference's dict trees."""
+def sorted_items(tree, prefix: tuple = ()) -> list:
+    """(path, leaf) pairs in sorted-key order at every dict and index
+    order in every list: the order of jax.tree_util.tree_leaves over the
+    reference's trees."""
+    keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
     out = []
-    for k in sorted(tree):
+    for k in keys:
         v = tree[k]
-        out.extend(sorted_items(v, prefix + (k,)) if isinstance(v, dict)
+        out.extend(sorted_items(v, prefix + (k,))
+                   if isinstance(v, (dict, list, tuple))
                    else [(prefix + (k,), v)])
     return out
 
 
-def _at(tree: dict, path: tuple):
+def _at(tree, path: tuple):
     for k in path:
         tree = tree[k]
     return tree
 
 
-def adam(params: dict, lr: float) -> torch.optim.Adam:
+def adam(params, lr: float) -> torch.optim.Adam:
     """torch Adam with optax.adam's defaults over a tree's tensors."""
     return torch.optim.Adam(leaves(params), lr=lr, betas=(0.9, 0.999),
                             eps=1e-8)
@@ -388,20 +372,51 @@ def adam_state(learner) -> dict:
     return {"count": count, "mu": mu, "nu": nu}
 
 
-def load_reference_state(learner, params: dict, count: int, mu: dict,
-                         nu: dict) -> None:
-    """Loads the reference learner's state into a port learner: its params
-    and its optax Adam state (count, mu, nu: optax's ScaleByAdamState, as
-    numpy), so both sides go on from one state mid-training. The moments
-    become torch Adam's exp_avg and exp_avg_sq, count its step."""
-    mu_t = tensor_params(mu, learner.device)
-    nu_t = tensor_params(nu, learner.device)
+def load_tree(tree, values) -> None:
+    """Copies a numpy tree into the same-shaped tree of tensors, in
+    place."""
     with torch.no_grad():
-        for path, t in sorted_items(learner.params):
-            t.copy_(torch.tensor(np.asarray(_at(params, path), np.float32)))
-            learner.optimizer.state[t] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": _at(mu_t, path), "exp_avg_sq": _at(nu_t, path)}
+        for path, t in sorted_items(tree):
+            t.copy_(torch.tensor(np.asarray(_at(values, path), np.float32)))
+
+
+def load_adam_state(optimizer, tree, count: int, mu, nu) -> None:
+    """optax's Adam state (count, mu, nu: its ScaleByAdamState, as numpy)
+    as torch Adam's state of `tree`'s tensors: the moments become exp_avg
+    and exp_avg_sq, count the step. `tree` may be a part of the tree the
+    moments were taken over (the critics of an actor-critic tree, say):
+    each of its leaves takes the moments at its own path."""
+    for path, t in sorted_items(tree):
+        optimizer.state[t] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.tensor(np.asarray(_at(mu, path), np.float32),
+                                    device=t.device),
+            "exp_avg_sq": torch.tensor(np.asarray(_at(nu, path),
+                                                  np.float32),
+                                       device=t.device)}
+
+
+def load_reference_state(learner, params, count: int, mu, nu, *,
+                         target=None) -> None:
+    """Loads the reference learner's state into a port learner: its params
+    and its optax Adam state, so both sides go on from one state
+    mid-training; with `target`, the target network's params too (the
+    learner's `target` tree). A learner with a second optimizer (SAC's
+    temperature, MADDPG's actors, CRR's critic) takes that one's state
+    through load_adam_state."""
+    load_tree(learner.params, params)
+    load_adam_state(learner.optimizer, learner.params, count, mu, nu)
+    if target is not None:
+        load_tree(learner.target, target)
+
+
+def fill_grads(params) -> None:
+    """Gives every tensor of the tree without a gradient a zero one: optax
+    steps every leaf of its tree, a zero gradient decaying its moments,
+    where torch's Adam skips a parameter whose .grad is None."""
+    for t in leaves(params):
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
 
 
 def device_batch(batch: dict, device) -> dict:

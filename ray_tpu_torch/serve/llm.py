@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ray_tpu_torch._device import device_context, resolve_device
+from ray_tpu_torch._private import device_objects
 from ray_tpu_torch.models.generate import SamplingParams, categorical
 from ray_tpu_torch.models.llama import (LlamaConfig, LlamaModel, PagedKVCache,
                                         init_kv_caches)
@@ -156,9 +157,10 @@ class LLMEngine:
 
     params: the model's state_dict (models.convert.init_params or
     params_from_flax). device: None means CUDA and raises without a card.
-    use_device_plane: kept for the signature of the JAX engine; both modes
-    hand KV from prefill to decode in place, the same-process route of the
-    reference's device-plane handoff (the device plane is not ported)."""
+    use_device_plane: a dense prefill hands its KV to decode through the
+    device plane's same-process route (`device_objects.local_handoff`:
+    the same tensors back, the plane's in_process and released counters
+    ticked); False writes the slot row straight from the prefill."""
 
     def __init__(self, cfg: LlamaConfig, params, *, max_batch: int = 4,
                  max_len: int = 1024, decode_chunk: int = 8,
@@ -175,6 +177,7 @@ class LLMEngine:
                     "chunked prefill is not supported in paged mode")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.use_device_plane = use_device_plane
         self.max_batch = max_batch
         self.max_len = max_len
         self.page_size = page_size
@@ -671,6 +674,9 @@ class LLMEngine:
         padded[0, : len(prompt)] = prompt
         with record_function("llm.prefill_one"):
             logits, kv_one = self._prefill_one(self._to_device(padded))
+            if self.use_device_plane:
+                kv_one = device_objects.local_handoff("llm-prefill-kv",
+                                                      kv_one)
             # The slot row of every layer, written in place.
             for (kf, vf), (k1, v1) in zip(self._kv, kv_one):
                 kf[slot].copy_(k1)

@@ -309,6 +309,39 @@ def test_local_handoff_is_identity_and_unpins():
                    for e in device_objects.registry().entries())
 
 
+def test_llm_engine_kv_handoff_uses_plane():
+    """Serve consumer: a dense-mode prefill routes its KV through the
+    device plane (in_process handover), and generation is unchanged."""
+    import dataclasses
+
+    from ray_tpu_torch.models import TINY, init_params
+    from ray_tpu_torch.serve.llm import LLMEngine, SamplingParams
+
+    cfg = dataclasses.replace(TINY, vocab_size=64, d_model=32, n_heads=2,
+                              n_kv_heads=2, d_ff=64, max_seq_len=64)
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = {}
+    for plane in (True, False):
+        before = device_objects.counters()
+        eng = LLMEngine(cfg, params, max_batch=2, max_len=48,
+                        use_device_plane=plane, device="cpu")
+        try:
+            toks[plane] = eng.generate([1, 2, 3],
+                                       SamplingParams(max_new_tokens=4))
+        finally:
+            eng.shutdown()
+        after = device_objects.counters()
+        moved = {k: after[k] - before[k] for k in ("in_process", "released")}
+        if plane:
+            # One prefill: n_layers * (k, v) handovers, all unpinned.
+            assert moved["in_process"] >= 2 * cfg.n_layers, moved
+            assert moved["released"] >= 2 * cfg.n_layers, moved
+        else:
+            assert moved == {"in_process": 0, "released": 0}, moved
+    assert len(toks[True]) >= 1
+    assert toks[True] == toks[False]
+
+
 def test_route_table_without_a_card():
     def meta(platform, node="n1", uuid=""):
         return device_objects.DeviceObjectMeta(

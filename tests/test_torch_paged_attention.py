@@ -199,7 +199,14 @@ def test_import_loads_no_jax_and_no_cuda():
         "ray_tpu_torch.rllib.pg, ray_tpu_torch.rllib.a2c, "
         "ray_tpu_torch.rllib.a3c, ray_tpu_torch.rllib.es, "
         "ray_tpu_torch.rllib.connectors, ray_tpu_torch.rllib.env_runner, "
-        "ray_tpu_torch.rllib.bandit, ray_tpu_torch.rllib.random_agent\n"
+        "ray_tpu_torch.rllib.bandit, ray_tpu_torch.rllib.random_agent, "
+        "ray_tpu_torch.rllib.dqn, ray_tpu_torch.rllib.replay, "
+        "ray_tpu_torch.rllib.utils, ray_tpu_torch.rllib.simple_q, "
+        "ray_tpu_torch.rllib.rainbow, ray_tpu_torch.rllib.r2d2, "
+        "ray_tpu_torch.rllib.ddpg, ray_tpu_torch.rllib.sac, "
+        "ray_tpu_torch.rllib.maddpg, ray_tpu_torch.rllib.slateq, "
+        "ray_tpu_torch.rllib.alphazero, ray_tpu_torch.rllib.cql, "
+        "ray_tpu_torch.rllib.crr\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                  'orbax', 'ray_tpu', 'msgpack',\n"
@@ -249,6 +256,24 @@ def test_entry_points_raise_without_a_card():
         MARWIL(MARWILConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         BCConfig().build()
+    from ray_tpu_torch.rllib import (AlphaZeroConfig, CQLConfig, CRRConfig,
+                                     DQNConfig, SACConfig, TD3Config)
+    from ray_tpu_torch.rllib.alphazero import AlphaZeroLearner
+    from ray_tpu_torch.rllib.dqn import DQNLearner
+    from ray_tpu_torch.rllib.maddpg import MADDPGConfig, MADDPGLearner
+    from ray_tpu_torch.rllib.rainbow import RainbowConfig, RainbowLearner
+    from ray_tpu_torch.rllib.sac import SACLearner
+    from ray_tpu_torch.rllib.ddpg import TD3Learner
+    for make in (lambda: DQNLearner(DQNConfig(), 4, 2),
+                 lambda: RainbowLearner(RainbowConfig(), 4, 2),
+                 lambda: TD3Learner(TD3Config(), 3, 1),
+                 lambda: SACLearner(SACConfig(), 3, 1),
+                 lambda: MADDPGLearner(MADDPGConfig(), 2, 4, 1),
+                 lambda: AlphaZeroLearner(AlphaZeroConfig()),
+                 lambda: CQLConfig(input_path="data.jsonl").build(),
+                 lambda: CRRConfig(input_path="data.jsonl").build()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
     from ray_tpu_torch import data
     from ray_tpu_torch.util.collective import init_collective_group
     with pytest.raises(RuntimeError, match="CUDA"):

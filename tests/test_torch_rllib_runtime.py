@@ -584,7 +584,15 @@ def test_builds_need_a_card(rt):
         pytest.skip("a CUDA device is present: the default device is valid")
     for cfg in (trllib.PPOConfig(), trllib.ImpalaConfig(),
                 trllib.APPOConfig(), trllib.PGConfig(), trllib.A2CConfig(),
-                trllib.A3CConfig()):
+                trllib.A3CConfig(), trllib.DQNConfig(),
+                trllib.SimpleQConfig(), trllib.ApexDQNConfig(),
+                trllib.RainbowConfig(), trllib.R2D2Config(),
+                trllib.TD3Config(), trllib.DDPGConfig(), trllib.SACConfig(),
+                trllib.MADDPGConfig(), trllib.SlateQConfig(),
+                trllib.AlphaZeroConfig(),
+                # The offline two raise before they read their data.
+                trllib.CQLConfig(input_path="data.jsonl"),
+                trllib.CRRConfig(input_path="data.jsonl")):
         with pytest.raises(RuntimeError, match="CUDA"):
             cfg.build()
     for cfg in (trllib.PPOConfig(num_learners=2),
@@ -788,8 +796,13 @@ def test_exports_and_configs_match_reference():
     ported = [n for n in REF_ALL if hasattr(trllib, n)]
     assert trllib.__all__[:len(ported)] == ported
     for n in ("PPO", "Impala", "APPO", "PG", "A2C", "A3C", "ES", "ARS",
-              "EnvRunner", "Bandit", "RandomAgent", "ConnectorPipeline"):
+              "EnvRunner", "Bandit", "RandomAgent", "ConnectorPipeline",
+              "DQN", "SimpleQ", "ApexDQN", "Rainbow", "R2D2", "TD3", "DDPG",
+              "SAC", "MADDPG", "SlateQ", "AlphaZero", "CQL", "CRR",
+              "ReplayBuffer", "PrioritizedReplayBuffer", "SequenceReplay",
+              "CoopNav", "SlateDocEnv", "MCTS", "TicTacToe"):
         assert n in ported
+    assert not {"DT", "QMIX", "CoopSwitch", "DreamerV3"} & set(ported)
     pairs = [(tppo.PPOConfig, jppo.PPOConfig),
              (timpala.ImpalaConfig, jimpala.ImpalaConfig),
              (tappo.APPOConfig, jappo.APPOConfig),
@@ -798,6 +811,13 @@ def test_exports_and_configs_match_reference():
              (tes.ESConfig, jes.ESConfig), (tes.ARSConfig, jes.ARSConfig),
              (tbandit.BanditConfig, jbandit.BanditConfig),
              (trandom.RandomAgentConfig, jrandom.RandomAgentConfig)]
+    from ray_tpu import rllib as jrllib
+
+    pairs += [(getattr(trllib, n), getattr(jrllib, n)) for n in (
+        "DQNConfig", "SimpleQConfig", "ApexDQNConfig", "RainbowConfig",
+        "R2D2Config", "TD3Config", "DDPGConfig", "SACConfig",
+        "MADDPGConfig", "SlateQConfig", "AlphaZeroConfig", "CQLConfig",
+        "CRRConfig")]
     for t, j in pairs:
         assert dataclasses.asdict(t()) == dataclasses.asdict(j()), t
     assert tlg.LearnerGroup.__name__ == "LearnerGroup"

@@ -310,7 +310,7 @@ def test_device_transport_waits_for_the_device_plane(port_rt):
         return torch.arange(n) if n else "none"
 
     ref = f.options(tensor_transport="device").remote(3)
-    assert type(ref).__name__ == "DeviceObjectRef"
+    assert isinstance(ref, port_rt.DeviceObjectRef)
     assert port_rt.get(ref).tolist() == [0, 1, 2]
     assert port_rt.get(f.options(tensor_transport="device").remote(0)) \
         == "none"
