@@ -315,6 +315,34 @@ Phases, in order; a failure in any of them ends the run with an error:
              `offpolicy_launches` are this process's counts over the
              phase (0). After the shutdown no process of the phase's
              cluster is left.
+21. last learners and tune - run after 20, TF32 off. DT on phase 14's
+             30 CartPole episodes written by write_offline_json, QMIX on
+             CoopSwitch and DreamerV3 on CartPole, each at its config's
+             defaults (the reference's widths: DT 64 wide, 2 layers, 2
+             heads, K 8; QMIX 32 and 16; DreamerV3 deter 128, 8 x 8
+             latents, hidden 128, batch 16 x 16, horizon 15),
+             XConfig().build() on the card, 2 iterations (DreamerV3's
+             second is its first with updates), then DT's
+             evaluate(episodes=2). The first update runs again on the
+             CPU from the same state, arguments and Gumbel noise: outputs
+             within 2e-5, state within 1e-4 but at ties, as phase 20 (DT's
+             key biases, whose gradient is 0 but for rounding, held to 2
+             lr). Logs updates/s, the median ms of an update and, for
+             QMIX and DreamerV3, whose acting runs on the card, env
+             steps/s. Then on ray_tpu_torch.init()'s defaults: a Tuner
+             with ASHAScheduler runs 4 DT trials at {"CPU": 1, "GPU":
+             0.25}, each reporting its loss and the card it leased (the
+             one card, in its lease and CUDA_VISIBLE_DEVICES), at least
+             one stopped early, the best a finished trial; then
+             PopulationBasedTraining runs 2 such trials checkpointing
+             with torch.save, and an exploit must restart a trial from
+             the other trial's checkpoint; a Pool worker (no CUDA
+             context) and a Queue first. Every loss finite, no trial or helper
+             process with a banned package, the seconds to each trial's
+             first report logged. No kernel lies on this path: the
+             kernels line's `last_launches` are this process's counts
+             over the phase (0). After the shutdown no process of the
+             phase's cluster is left.
 Phase 4b also holds the dense engine's prefills to the device plane:
 each hands its KV to decode by local_handoff, so the plane's in_process
 counter rises by at least 2 x n_layers a prefill and host_fallback stays
@@ -329,8 +357,9 @@ steps, `dit_sample_launches` from the sampler's run and
 `checkpoint_launches` from phase 13's run A, `gang_launches` from
 phase 16's gang worker, `elastic_launches` from phase 18's workers; a
 paged kernel's `disagg_launches` from phase 12's hand-offs, every
-kernel's `rl_launches` from phase 19 and `offpolicy_launches` from
-phase 20 (0: no kernel on the RL paths),
+kernel's `rl_launches` from phase 19, `offpolicy_launches` from phase
+20 and `last_launches` from phase 21 (0: no kernel on the RL and Tune
+paths),
 `runtime_launches` from phase 15's replica and `disagg_serve_launches`
 from phase 17's decode replicas; a flash kernel's `dit_shape`
 the times at DiT-XL/2's attention, B 32, H 16, S 256, D 72, non-causal),
@@ -3949,13 +3978,14 @@ def output_tensors(out) -> list:
 
 def learner_trees(learner) -> dict:
     """A learner's state trees: params, and where it has them the target,
-    CRR's critic and its target, SAC's log_alpha."""
+    CRR's critic and its target, SAC's log_alpha, DreamerV3's slow critic
+    and return scale."""
     trees = {k: getattr(learner, k) for k in
-             ("params", "target", "q_params", "q_target")
+             ("params", "target", "q_params", "q_target", "slow_critic")
              if hasattr(learner, k)}
-    if hasattr(learner, "log_alpha") and isinstance(learner.log_alpha,
-                                                     torch.Tensor):
-        trees["log_alpha"] = {"log_alpha": learner.log_alpha}
+    for k in ("log_alpha", "ret_scale"):
+        if isinstance(getattr(learner, k, None), torch.Tensor):
+            trees[k] = {k: getattr(learner, k)}
     return trees
 
 
@@ -3991,7 +4021,7 @@ def record_first_updates(learner) -> dict:
 def cpu_twin(name: str, algo):
     """A learner of the same class and config as `algo`'s, on the CPU."""
     lr, cfg = getattr(algo, "learner", algo), algo.config
-    if name in ("cql", "crr"):
+    if name in ("cql", "crr", "dt", "qmix", "dreamerv3"):
         return type(algo)(cfg, device="cpu")
     if name == "alphazero":
         return type(lr)(cfg, device="cpu")
@@ -4007,11 +4037,16 @@ def cpu_twin(name: str, algo):
     return type(lr)(cfg, algo.obs_size, algo.num_actions, device="cpu")
 
 
-def hold_offpolicy_updates(name: str, algo, rec: dict) -> dict:
+def hold_offpolicy_updates(name: str, algo, rec: dict,
+                           rounding: dict | None = None) -> dict:
     """The first updating iteration's updates run again on the CPU from
     the same state trees, batches and noise: every output within 2e-5;
     every state tensor after them within 1e-4 but at ties (phase 14's
-    rule: at most 1% of a tensor's elements, held to 2 lr an update)."""
+    rule: at most 1% of a tensor's elements, held to 2 lr an update).
+    `rounding` ({(tree, *path): index}) names entries whose gradient is 0
+    but for rounding, which Adam turns into steps of up to about lr that
+    differ between devices: held to 2 lr an update, not counted as
+    ties."""
     from ray_tpu_torch.rllib.ppo import load_tree, sorted_items
 
     cfg = algo.config
@@ -4027,8 +4062,8 @@ def hold_offpolicy_updates(name: str, algo, rec: dict) -> dict:
     except AssertionError as e:
         raise AssertionError(f"offpolicy {name}: an update's output on the "
                              f"card against the CPU: {e}") from None
-    lr = max(getattr(cfg, k) for k in ("lr", "actor_lr", "critic_lr")
-             if hasattr(cfg, k))
+    lr = max(getattr(cfg, k) for k in ("lr", "actor_lr", "critic_lr",
+                                       "model_lr") if hasattr(cfg, k))
     card_trees = learner_trees(getattr(algo, "learner", algo))
     updates = len(outs)
     err, ties, faults = 0.0, 0, []
@@ -4036,13 +4071,21 @@ def hold_offpolicy_updates(name: str, algo, rec: dict) -> dict:
         for (path, w), (_p, g) in zip(sorted_items(tree),
                                       sorted_items(card_trees[k])):
             w, g = w.detach().numpy(), g.detach().cpu().numpy()
-            off = np.abs(g - w) > 1e-4 * (1 + np.abs(w))
+            diff = np.abs(g - w)
+            noise = (rounding or {}).get((k, *path))
+            if noise is not None:
+                if diff[noise].max() > 2 * lr * updates:
+                    faults.append(f"{k}/{'/'.join(map(str, path))}: a "
+                                  f"rounding-noise entry {diff[noise].max()}"
+                                  f" off")
+                diff[noise] = 0.0
+            off = diff > 1e-4 * (1 + np.abs(w))
             ties += int(off.sum())
             if off.sum() > max(1, off.size // 100) or \
-                    np.abs(g - w)[off].max(initial=0.0) > 2 * lr * updates:
+                    diff[off].max(initial=0.0) > 2 * lr * updates:
                 faults.append(f"{k}/{'/'.join(map(str, path))}: "
                               f"{int(off.sum())} of {off.size} off")
-            err = max(err, float(np.abs(g - w)[~off].max(initial=0.0)))
+            err = max(err, float(diff[~off].max(initial=0.0)))
     row = {"updates_replayed": updates, "output_err": loss_err,
            "state_err": err, "ties": ties}
     if faults:
@@ -4168,6 +4211,347 @@ def offpolicy_phase(card: str) -> dict:
     return {**dict(pa.launch_counts), **dict(fa.launch_counts)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the last learners (DT, QMIX with CoopSwitch, DreamerV3) and
+# Tune, its trials on GPU leases
+# ---------------------------------------------------------------------------
+
+LAST_ITERS = 2              # train() calls of each learner
+TUNE_TRIALS, TUNE_ITERS = 4, 4
+PBT_ITERS = 6
+
+
+def dt_rounding(cfg) -> dict:
+    """DT's entries whose gradient is 0 but for rounding: a block's key
+    bias adds a constant to each query's scores, which the softmax takes
+    out."""
+    E = cfg.embed_dim
+    return {("params", f"blk{i}", "qkv", "b"): slice(E, 2 * E)
+            for i in range(cfg.n_layers)}
+
+
+def last_learner_run(name: str, algo, steps_key: str | None,
+                     rounding: dict | None = None) -> dict:
+    """LAST_ITERS train() calls of a learner at its config's defaults on
+    the card; after the first that updates, its updates run again on the
+    CPU as phase 20 holds them. Returns its row: updates/s and the median
+    ms of an update, env steps/s where it acts (the iterations' time less
+    their updates'), the drift."""
+    rec = record_first_updates(algo)
+    results, iter_s, held = [], [], None
+    for _ in range(LAST_ITERS):
+        rec["recording"] = rec["state"] is None
+        t0 = time.perf_counter()
+        results.append(algo.train())
+        iter_s.append(time.perf_counter() - t0)
+        rec["recording"] = False
+        if held is None and rec["calls"]:
+            held = hold_offpolicy_updates(name, algo, rec, rounding)
+    if held is None:
+        raise AssertionError(f"last {name}: no update in {LAST_ITERS} "
+                             f"iterations: {results}")
+    for r in results:
+        bad = {k: v for k, v in r.items() if isinstance(v, float)
+               and "loss" in k and not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"last {name}: {bad} in {r}")
+    learn_s = sum(rec["times"])
+    row = {"algo": name, "iterations": len(results),
+           "updates": len(rec["times"]), "learn_time_s": learn_s,
+           "updates_per_s": len(rec["times"]) / learn_s,
+           "update_ms_median": 1e3 * statistics.median(rec["times"]),
+           "iteration_s": iter_s, **held,
+           "last": {k: v for k, v in results[-1].items()
+                    if "loss" in k or k in ("entropy", "imag_return",
+                                            "episode_reward_mean")}}
+    if steps_key is not None:
+        steps = results[-1][steps_key]
+        act_s = sum(iter_s) - learn_s
+        row.update(env_steps=steps, act_time_s=act_s,
+                   env_steps_per_s=steps / act_s)
+    log(f"last {name}: " + json.dumps(row))
+    return row
+
+
+def dt_trial(config):
+    """A Tune trial: DT on the card leased to it (a share of the one
+    card), from a checkpoint where PBT gave one. Reports the loss, the
+    card, its process's banned packages and the seconds since it
+    started."""
+    import os
+    import time
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import DTConfig
+    from ray_tpu_torch.rllib.ppo import sorted_items
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+
+    t0 = time.perf_counter()
+    started = time.time()
+    torch.set_num_threads(1)    # the one CPU the trial's lease holds
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = ray_tpu_torch.get_runtime_context().get_accelerator_ids()["GPU"]
+    algo = DTConfig(input_path=config["path"], lr=config["lr"]).build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    restored = None
+    if config.get("_checkpoint_path"):
+        state = torch.load(os.path.join(config["_checkpoint_path"],
+                                        "dt.pt"), map_location=algo.device)
+        with torch.no_grad():
+            for (_, t), (_, v) in zip(sorted_items(algo.params),
+                                      sorted_items(state["params"])):
+                t.copy_(v)
+        algo.optimizer.load_state_dict(state["optimizer"])
+        algo.iteration = state["iteration"]
+        restored = state["writer"]
+    for i in range(config["iters"]):
+        r = algo.train()
+        ckpt = None
+        if config.get("checkpoint_root"):
+            d = os.path.join(config["checkpoint_root"],
+                             f"{os.getpid()}_{i}")
+            os.makedirs(d, exist_ok=True)
+            torch.save({"params": algo.params,
+                        "optimizer": algo.optimizer.state_dict(),
+                        "iteration": algo.iteration,
+                        "writer": os.getpid()}, os.path.join(d, "dt.pt"))
+            ckpt = Checkpoint(d)
+        banned = sorted({m.split(".")[0] for m in sys.modules}
+                        & set(config["banned"]))
+        session.report({"loss": r["loss"], "card": card,
+                        "visible": os.environ["CUDA_VISIBLE_DEVICES"],
+                        "pid": os.getpid(), "restored_from": restored,
+                        "banned": banned, "lr": config["lr"],
+                        "started": started, "build_s": build_s,
+                        "s": time.perf_counter() - t0}, checkpoint=ckpt)
+
+
+def helper_state():
+    """A helper actor's process: its top-level packages and whether CUDA
+    is initialised."""
+    import sys
+
+    import torch
+
+    return {"packages": sorted({m.split(".")[0] for m in sys.modules}),
+            "cuda_initialized": torch.cuda.is_initialized()}
+
+
+def trial_rows(grid, fit_t0: float) -> list:
+    """A trial's figures: its reports and last loss, the cards it leased,
+    its first process's seconds from fit() to the trainable's start,
+    from there to the learner built on the card (the CUDA context made)
+    and to the first report, and its last process's seconds to its last
+    report."""
+    rows = []
+    for r in grid:
+        h = r.metrics_history
+        rows.append({"lr": r.config["lr"], "reports": len(h),
+                     "error": r.error, "loss": h[-1]["loss"] if h else None,
+                     "cards": sorted({c for m in h for c in m["card"]}),
+                     "start_after_fit_s": h[0]["started"] - fit_t0
+                     if h else None,
+                     "build_s": h[0]["build_s"] if h else None,
+                     "first_report_s": h[0]["s"] if h else None,
+                     "last_report_s": h[-1]["s"] if h else None})
+    return rows
+
+
+def check_trials(what: str, grid, fit_t0: float) -> list:
+    """Every trial finished without error, each report from a process
+    whose lease and CUDA_VISIBLE_DEVICES name the one card, every loss
+    finite, no banned package loaded."""
+    rows = trial_rows(grid, fit_t0)
+    for r in grid:
+        h = r.metrics_history
+        if r.error or not h:
+            raise AssertionError(f"{what}: a trial failed: {r.error}")
+        bad = [m for m in h if len(m["card"]) != 1
+               or m["card"] != [m["visible"]]
+               or not math.isfinite(m["loss"]) or m["banned"]]
+        if bad:
+            raise AssertionError(f"{what}: trial reports {bad[:2]}")
+    cards = {c for row in rows for c in row["cards"]}
+    if len(cards) != 1:
+        raise AssertionError(f"{what}: trials leased cards {cards}")
+    return rows
+
+
+def tune_asha(rt, path: str) -> dict:
+    """TUNE_TRIALS DT trials at {"CPU": 1, "GPU": 0.25} under ASHA (loss,
+    min): every trial reports the card it leased, at least one is stopped
+    early, the best result is a finished trial."""
+    from ray_tpu_torch import tune
+
+    sched = tune.ASHAScheduler(metric="loss", mode="min",
+                               max_t=TUNE_ITERS, grace_period=1,
+                               reduction_factor=2)
+    t0, fit_t0 = time.perf_counter(), time.time()
+    grid = tune.Tuner(
+        dt_trial,
+        param_space={"lr": tune.grid_search([3e-3, 1e-3, 3e-4, 1e-4]),
+                     "path": path, "iters": TUNE_ITERS,
+                     "banned": list(RUNTIME_BANNED)},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    scheduler=sched,
+                                    max_concurrent_trials=TUNE_TRIALS),
+        resources_per_trial={"CPU": 1, "GPU": 0.25}).fit()
+    fit_s = time.perf_counter() - t0
+    rows = check_trials("tune", grid, fit_t0)
+    stopped = [row for row in rows if row["reports"] < TUNE_ITERS]
+    if not stopped:
+        raise AssertionError(f"tune: ASHA stopped no trial: {rows}")
+    best = grid.get_best_result()
+    if best.error is not None or not best.metrics_history:
+        raise AssertionError(f"tune: the best result is not a finished "
+                             f"trial: {best.error}")
+    if max(row["reports"] for row in rows) != TUNE_ITERS:
+        raise AssertionError(f"tune: no trial ran its {TUNE_ITERS} "
+                             f"iterations: {rows}")
+    out = {"fit_s": fit_s, "trials": rows, "stopped_early": len(stopped),
+           "best": {"lr": best.config["lr"], "loss": best.metrics["loss"],
+                    "reports": len(best.metrics_history)}}
+    log("last tune asha: " + json.dumps(out))
+    return out
+
+
+def tune_pbt(rt, path: str, root: str) -> dict:
+    """Two DT trials under PopulationBasedTraining, checkpointing with
+    torch.save each iteration: at least one exploit restarts a trial from
+    the other trial's checkpoint, written by a process that PBT's stop
+    of it did not take with it."""
+    from ray_tpu_torch import tune
+
+    sched = tune.PopulationBasedTraining(
+        metric="loss", mode="min", perturbation_interval=2,
+        hyperparam_mutations={"lr": [3e-3, 1e-3, 3e-4, 1e-4]},
+        quantile_fraction=0.5, seed=0)
+    t0, fit_t0 = time.perf_counter(), time.time()
+    grid = tune.Tuner(
+        dt_trial,
+        param_space={"lr": tune.grid_search([3e-3, 1e-5]), "path": path,
+                     "iters": PBT_ITERS, "checkpoint_root": root,
+                     "banned": list(RUNTIME_BANNED)},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    scheduler=sched,
+                                    max_concurrent_trials=2),
+        resources_per_trial={"CPU": 1, "GPU": 0.25}).fit()
+    fit_s = time.perf_counter() - t0
+    rows = check_trials("pbt", grid, fit_t0)
+    pids = [{m["pid"] for m in r.metrics_history} for r in grid]
+    exploits = [{"trial": i, "from_pid": m["restored_from"]}
+                for i, r in enumerate(grid) for m in r.metrics_history
+                if m["restored_from"] is not None]
+    across = [e for e in exploits
+              if any(e["from_pid"] in p for j, p in enumerate(pids)
+                     if j != e["trial"])]
+    if not across:
+        raise AssertionError(f"pbt: no exploit restored from the other "
+                             f"trial's checkpoint: {exploits}; {rows}")
+    out = {"fit_s": fit_s, "trials": rows, "exploit_reports": len(exploits),
+           "restored_across": len({(e["trial"], e["from_pid"])
+                                   for e in across})}
+    log("last tune pbt: " + json.dumps(out))
+    return out
+
+
+def helper_actors(rt) -> dict:
+    """A Pool worker and a Queue round trip on the phase's cluster: the
+    Pool's process has no CUDA context and no banned package."""
+    from ray_tpu_torch.util.multiprocessing import Pool
+    from ray_tpu_torch.util.queue import Queue
+
+    with Pool(processes=1) as p:
+        st = p.apply(helper_state)
+    banned = sorted(set(st["packages"]) & set(RUNTIME_BANNED))
+    if st["cuda_initialized"] or banned:
+        raise AssertionError(f"last: a Pool worker has CUDA "
+                             f"{st['cuda_initialized']}, loaded {banned}")
+    q = Queue(maxsize=2)
+    q.put("x")
+    got = q.get(timeout=30)
+    q.shutdown()
+    if got != "x":
+        raise AssertionError(f"last: the Queue gave {got!r}")
+    return {"pool_cuda_initialized": st["cuda_initialized"]}
+
+
+def last_learners_phase(card: str) -> dict:
+    """Phase 21. DT (on phase 14's 30 CartPole episodes written by
+    write_offline_json, then evaluate(episodes=2)), QMIX on CoopSwitch
+    and DreamerV3 on CartPole, each at its config's defaults, built with
+    the learner on the card, LAST_ITERS iterations, the first update held
+    against the CPU; then on ray_tpu_torch.init()'s defaults Tune: DT
+    trials on quarter-card leases under ASHA, then under PBT with
+    torch.save checkpoints; a Pool worker and a Queue before them. No
+    kernel lies on this path: this process's kernel counts over the phase
+    are returned (0). After the shutdown no process of the phase's
+    cluster is left."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import DreamerV3Config, DTConfig, QMIXConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    if banned_loaded():
+        raise AssertionError(f"last: the driver loaded {banned_loaded()}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_last_")
+    try:
+        path = os.path.join(root, "cartpole.jsonl")
+        expert_data(path)
+        dt_cfg = DTConfig(input_path=path)
+        dt = dt_cfg.build()
+        rows = [last_learner_run("dt", dt, None, dt_rounding(dt_cfg))]
+        t0 = time.perf_counter()
+        ev = dt.evaluate(episodes=2)
+        ev_s = time.perf_counter() - t0
+        if not math.isfinite(ev["episode_reward_mean"]):
+            raise AssertionError(f"last dt: evaluate gave {ev}")
+        log("last dt evaluate: " + json.dumps({**ev, "seconds": ev_s}))
+        rows.append(last_learner_run("qmix", QMIXConfig().build(),
+                                     "timesteps_total"))
+        rows.append(last_learner_run("dreamerv3", DreamerV3Config().build(),
+                                     "timesteps_total"))
+        t0 = time.perf_counter()
+        rt.init()
+        try:
+            init_s = time.perf_counter() - t0
+            # The helpers first: their actors also warm the cluster's
+            # zygote, so the fits below time Tune's own trial starts.
+            t0 = time.perf_counter()
+            helpers = helper_actors(rt)
+            helpers["helpers_s"] = time.perf_counter() - t0
+            asha = tune_asha(rt, path)
+            pbt = tune_pbt(rt, path, os.path.join(root, "pbt"))
+            if banned_loaded():
+                raise AssertionError(f"last: the driver loaded "
+                                     f"{banned_loaded()}")
+        finally:
+            procs = cluster_processes(rt._runtime_node)
+            t_down = time.perf_counter()
+            rt.shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    deadline = time.time() + 60
+    while still_running(procs) and time.time() < deadline:
+        time.sleep(0.05)
+    if still_running(procs):
+        raise AssertionError(f"last: processes left after shutdown: "
+                             f"{still_running(procs)}")
+    log("last runtime: " + json.dumps({
+        "card": card, "init_s": init_s, "cluster_processes": len(procs),
+        "shutdown_s": time.perf_counter() - t_down,
+        "learners": [r["algo"] for r in rows],
+        "asha_fit_s": asha["fit_s"], "pbt_fit_s": pbt["fit_s"],
+        **helpers}))
+    return {**dict(pa.launch_counts), **dict(fa.launch_counts)}
+
+
 def run_phase(name: str, fn, *args):
     """Runs one phase; logs its time and peak device memory, then frees
     what it left in the allocator's cache."""
@@ -4222,6 +4606,8 @@ def main():
     elastic_counts = run_phase("elastic gang", elastic_phase, card)
     rl_counts = run_phase("rl on the runtime", rl_runtime_phase, card)
     offpolicy_counts = run_phase("off-policy rl", offpolicy_phase, card)
+    last_counts = run_phase("last learners and tune", last_learners_phase,
+                            card)
 
     for name, row in rows.items():
         row["launches"] = counts[name]
@@ -4230,6 +4616,7 @@ def main():
         row["disagg_serve_launches"] = disagg_serve_counts[name]
         row["rl_launches"] = rl_counts[name]
         row["offpolicy_launches"] = offpolicy_counts[name]
+        row["last_launches"] = last_counts[name]
     for name, row in flash_rows.items():
         row["launches"] = flash_counts[name]
         row["sharded_launches"] = sharded_counts[name]
@@ -4242,6 +4629,7 @@ def main():
         row["elastic_launches"] = elastic_counts[name]
         row["rl_launches"] = rl_counts[name]
         row["offpolicy_launches"] = offpolicy_counts[name]
+        row["last_launches"] = last_counts[name]
     print(json.dumps({"kernels": [rows[n] for n in KERNELS]
                       + [flash_rows[n] for n in FLASH_KERNELS]}))
     print(card_line())

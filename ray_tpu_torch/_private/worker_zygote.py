@@ -145,6 +145,10 @@ def main() -> None:
         import torch  # noqa: F401
     except ImportError:
         pass
+    # And the train package (the session, the worker group, DCP): every
+    # TrainWorker, a Tune trial among them, imports it at its first run,
+    # about 2 s of CPU an actor otherwise. It makes no CUDA context.
+    import ray_tpu_torch.train  # noqa: F401
 
     # Collect-then-freeze the warm template heap ONCE pre-fork: every
     # child inherits a frozen startup heap (no per-spawn gc.collect —

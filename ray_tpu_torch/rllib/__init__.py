@@ -5,10 +5,10 @@ card, in the driver or as a LearnerGroup (PPO, IMPALA, APPO, PG, A2C,
 A3C); ES and ARS, numpy on CPU actors; the offline algorithms BC and
 MARWIL; the off-policy family (DQN, SimpleQ, Ape-X, Rainbow, R2D2,
 TD3/DDPG, SAC, MADDPG, SlateQ, AlphaZero) on CPU rollout and self-play
-actors with their learners on the card in the driver; the offline CQL
-and CRR; the contextual bandits and the random baseline. The exports
-keep the reference's `__all__` order for the names ported so far; DT,
-QMIX (with CoopSwitch) and DreamerV3 are ROADMAP A13's rest."""
+actors with their learners on the card in the driver; the offline CQL,
+CRR and DT; the one-process QMIX (with CoopSwitch) and DreamerV3, whose
+acting runs on the card; the contextual bandits and the random
+baseline. The exports keep the reference's `__all__` order."""
 
 from ray_tpu_torch.rllib.a2c import A2C, A2CConfig
 from ray_tpu_torch.rllib.a3c import A3C, A3CConfig
@@ -27,6 +27,8 @@ from ray_tpu_torch.rllib.cql import CQL, CQLConfig
 from ray_tpu_torch.rllib.crr import CRR, CRRConfig
 from ray_tpu_torch.rllib.ddpg import DDPG, TD3, DDPGConfig, TD3Config
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, ReplayBuffer
+from ray_tpu_torch.rllib.dreamerv3 import DreamerV3, DreamerV3Config
+from ray_tpu_torch.rllib.dt import DT, DTConfig
 from ray_tpu_torch.rllib.env import (ENV_REGISTRY, CartPole, DualCartPole,
                                      Env, MultiAgentEnv, Pendulum,
                                      VisualCatch, make_env)
@@ -39,6 +41,7 @@ from ray_tpu_torch.rllib.offline import (BC, MARWIL, BCConfig, JsonReader,
 from ray_tpu_torch.rllib.pg import PG, PGConfig
 from ray_tpu_torch.rllib.ppo import (PPO, PPOConfig, PPOLearner,
                                      make_ppo_loss)
+from ray_tpu_torch.rllib.qmix import QMIX, CoopSwitch, QMIXConfig
 from ray_tpu_torch.rllib.r2d2 import R2D2, R2D2Config, SequenceReplay
 from ray_tpu_torch.rllib.rainbow import Rainbow, RainbowConfig
 from ray_tpu_torch.rllib.random_agent import RandomAgent, RandomAgentConfig
@@ -62,7 +65,9 @@ __all__ = ["PPO", "PPOConfig", "DQN", "DQNConfig", "SAC", "SACConfig",
            "SimpleQ", "SimpleQConfig", "ApexDQN", "ApexDQNConfig",
            "Bandit", "BanditConfig", "LinearDiscreteBandit",
            "CRR", "CRRConfig", "RandomAgent", "RandomAgentConfig",
+           "DT", "DTConfig", "QMIX", "QMIXConfig", "CoopSwitch",
            "Rainbow", "RainbowConfig", "R2D2", "R2D2Config",
+           "DreamerV3", "DreamerV3Config",
            "SequenceReplay", "MADDPG", "MADDPGConfig", "CoopNav",
            "AlphaZero", "AlphaZeroConfig", "MCTS", "TicTacToe",
            "SlateQ", "SlateQConfig", "SlateDocEnv",

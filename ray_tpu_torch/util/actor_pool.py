@@ -1,0 +1,92 @@
+"""ActorPool: load-balance tasks over a fixed set of actors. Port of
+ray_tpu/util/actor_pool.py.
+
+Parity: reference python/ray/util/actor_pool.py.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Iterable
+
+import ray_tpu_torch
+
+
+class ActorPool:
+    def __init__(self, actors: list):
+        self._idle = list(actors)
+        self._future_to_actor: dict = {}
+        self._index_to_future: dict[int, Any] = {}
+        self._next_task_index = 0
+        self._next_return_index = 0
+        self._pending_submits: list = []
+
+    def submit(self, fn: Callable, value) -> None:
+        if self._idle:
+            actor = self._idle.pop()
+            future = fn(actor, value)
+            self._future_to_actor[future] = actor
+            self._index_to_future[self._next_task_index] = future
+            self._next_task_index += 1
+        else:
+            self._pending_submits.append((fn, value))
+
+    def has_next(self) -> bool:
+        return bool(self._index_to_future) or bool(self._pending_submits)
+
+    def get_next(self, timeout: float | None = None):
+        """Next result in submission order."""
+        if self._next_return_index not in self._index_to_future:
+            raise StopIteration("no pending results")
+        future = self._index_to_future.pop(self._next_return_index)
+        self._next_return_index += 1
+        value = ray_tpu_torch.get(future, timeout=timeout)
+        self._return_actor(self._future_to_actor.pop(future))
+        return value
+
+    def get_next_unordered(self, timeout: float | None = None):
+        if not self._index_to_future:
+            raise StopIteration("no pending results")
+        ready, _ = ray_tpu_torch.wait(
+            list(self._index_to_future.values()), num_returns=1,
+            timeout=timeout)
+        if not ready:
+            raise TimeoutError("get_next_unordered timed out")
+        future = ready[0]
+        for idx, fut in list(self._index_to_future.items()):
+            if fut == future:
+                del self._index_to_future[idx]
+                break
+        value = ray_tpu_torch.get(future)
+        self._return_actor(self._future_to_actor.pop(future))
+        return value
+
+    def _return_actor(self, actor) -> None:
+        if self._pending_submits:
+            fn, value = self._pending_submits.pop(0)
+            future = fn(actor, value)
+            self._future_to_actor[future] = actor
+            self._index_to_future[self._next_task_index] = future
+            self._next_task_index += 1
+        else:
+            self._idle.append(actor)
+
+    def map(self, fn: Callable, values: Iterable):
+        for v in values:
+            self.submit(fn, v)
+        while self.has_next():
+            yield self.get_next()
+
+    def map_unordered(self, fn: Callable, values: Iterable):
+        for v in values:
+            self.submit(fn, v)
+        while self.has_next():
+            yield self.get_next_unordered()
+
+    def has_free(self) -> bool:
+        return bool(self._idle)
+
+    def pop_idle(self):
+        return self._idle.pop() if self._idle else None
+
+    def push(self, actor) -> None:
+        self._return_actor(actor)

@@ -206,7 +206,12 @@ def test_import_loads_no_jax_and_no_cuda():
         "ray_tpu_torch.rllib.ddpg, ray_tpu_torch.rllib.sac, "
         "ray_tpu_torch.rllib.maddpg, ray_tpu_torch.rllib.slateq, "
         "ray_tpu_torch.rllib.alphazero, ray_tpu_torch.rllib.cql, "
-        "ray_tpu_torch.rllib.crr\n"
+        "ray_tpu_torch.rllib.crr, ray_tpu_torch.rllib.dt, "
+        "ray_tpu_torch.rllib.qmix, ray_tpu_torch.rllib.dreamerv3, "
+        "ray_tpu_torch.util.actor_pool, ray_tpu_torch.util.queue, "
+        "ray_tpu_torch.util.multiprocessing, ray_tpu_torch.tune, "
+        "ray_tpu_torch.tune.search, ray_tpu_torch.tune.schedulers, "
+        "ray_tpu_torch.tune.tuner\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                  'orbax', 'ray_tpu', 'msgpack',\n"
@@ -257,7 +262,8 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         BCConfig().build()
     from ray_tpu_torch.rllib import (AlphaZeroConfig, CQLConfig, CRRConfig,
-                                     DQNConfig, SACConfig, TD3Config)
+                                     DQNConfig, DreamerV3Config, DTConfig,
+                                     QMIXConfig, SACConfig, TD3Config)
     from ray_tpu_torch.rllib.alphazero import AlphaZeroLearner
     from ray_tpu_torch.rllib.dqn import DQNLearner
     from ray_tpu_torch.rllib.maddpg import MADDPGConfig, MADDPGLearner
@@ -271,7 +277,10 @@ def test_entry_points_raise_without_a_card():
                  lambda: MADDPGLearner(MADDPGConfig(), 2, 4, 1),
                  lambda: AlphaZeroLearner(AlphaZeroConfig()),
                  lambda: CQLConfig(input_path="data.jsonl").build(),
-                 lambda: CRRConfig(input_path="data.jsonl").build()):
+                 lambda: CRRConfig(input_path="data.jsonl").build(),
+                 lambda: DTConfig(input_path="data.jsonl").build(),
+                 lambda: QMIXConfig().build(),
+                 lambda: DreamerV3Config().build()):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     from ray_tpu_torch import data

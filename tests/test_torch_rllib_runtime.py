@@ -590,9 +590,11 @@ def test_builds_need_a_card(rt):
                 trllib.TD3Config(), trllib.DDPGConfig(), trllib.SACConfig(),
                 trllib.MADDPGConfig(), trllib.SlateQConfig(),
                 trllib.AlphaZeroConfig(),
-                # The offline two raise before they read their data.
+                # The offline three raise before they read their data.
                 trllib.CQLConfig(input_path="data.jsonl"),
-                trllib.CRRConfig(input_path="data.jsonl")):
+                trllib.CRRConfig(input_path="data.jsonl"),
+                trllib.DTConfig(input_path="data.jsonl"),
+                trllib.QMIXConfig(), trllib.DreamerV3Config()):
         with pytest.raises(RuntimeError, match="CUDA"):
             cfg.build()
     for cfg in (trllib.PPOConfig(num_learners=2),
@@ -791,9 +793,11 @@ def test_random_agent_baseline():
 
 
 def test_exports_and_configs_match_reference():
-    """The package exports the reference's names for what is ported, in
-    its __all__ order, and every config's defaults are the reference's."""
+    """The package exports every one of the reference's names, in its
+    __all__ order, and every config's defaults are the reference's; Tune
+    exports the reference's names in its order."""
     ported = [n for n in REF_ALL if hasattr(trllib, n)]
+    assert ported == list(REF_ALL)
     assert trllib.__all__[:len(ported)] == ported
     for n in ("PPO", "Impala", "APPO", "PG", "A2C", "A3C", "ES", "ARS",
               "EnvRunner", "Bandit", "RandomAgent", "ConnectorPipeline",
@@ -802,7 +806,8 @@ def test_exports_and_configs_match_reference():
               "ReplayBuffer", "PrioritizedReplayBuffer", "SequenceReplay",
               "CoopNav", "SlateDocEnv", "MCTS", "TicTacToe"):
         assert n in ported
-    assert not {"DT", "QMIX", "CoopSwitch", "DreamerV3"} & set(ported)
+    for n in ("DT", "QMIX", "CoopSwitch", "DreamerV3"):
+        assert n in ported
     pairs = [(tppo.PPOConfig, jppo.PPOConfig),
              (timpala.ImpalaConfig, jimpala.ImpalaConfig),
              (tappo.APPOConfig, jappo.APPOConfig),
@@ -817,7 +822,11 @@ def test_exports_and_configs_match_reference():
         "DQNConfig", "SimpleQConfig", "ApexDQNConfig", "RainbowConfig",
         "R2D2Config", "TD3Config", "DDPGConfig", "SACConfig",
         "MADDPGConfig", "SlateQConfig", "AlphaZeroConfig", "CQLConfig",
-        "CRRConfig")]
+        "CRRConfig", "DTConfig", "QMIXConfig", "DreamerV3Config")]
     for t, j in pairs:
         assert dataclasses.asdict(t()) == dataclasses.asdict(j()), t
     assert tlg.LearnerGroup.__name__ == "LearnerGroup"
+    from ray_tpu import tune as jtune
+    from ray_tpu_torch import tune as ttune
+
+    assert ttune.__all__ == jtune.__all__
