@@ -197,7 +197,24 @@ Phases, in order; a failure in any of them ends the run with an error:
              weights (a divergence only at a near-tie, as 4b); the
              replica's decode steps, graph replays and K3's launches (at
              least n_layers x the steps); tokens/s and TTFT beside phase
-             4's; the replica's KV pages all back in their pool. After
+             4's; the replica's KV pages all back in their pool. The
+             control path runs on the native planes (the default): with
+             a plain probe actor made and a CPU task run again once its
+             worker is back in the idle pool, the GCS's and the raylet's
+             native_control counters each show frames handled natively,
+             the raylet's lease plane a lease granted, none degraded and
+             no divergence trip. Then the GCS is killed
+             with the replica alive: the replica, through its actor
+             handle, serves the greedy payloads while the GCS is down,
+             each held against the Generator; after restart_gcs() the
+             raylet re-registers, a new task runs, the Serve controller
+             is found by name, the replica's actor row is ALIVE, a KV
+             row written before the kill is back, and the replica serves
+             the payloads again through its Serve handle, bitwise the
+             tokens it gave with the GCS down; with the deployment
+             deleted a num_gpus=0.25 task gets the card. Logged: seconds
+             from the restart to the re-registration and to the first
+             new task, and K3's launches in the step. After
              serve.shutdown() and ray_tpu_torch.shutdown() no process of
              the phase's cluster (its GCS, raylet and every process under
              them) is left and the card's free memory is back.
@@ -343,6 +360,20 @@ Phases, in order; a failure in any of them ends the run with an error:
              kernels line's `last_launches` are this process's counts
              over the phase (0). After the shutdown no process of the
              phase's cluster is left.
+22. control plane - run last, no model. Two fresh clusters on
+             ray_tpu_torch.init()'s defaults but idle leases returned
+             after 0.2 s, one with the switch RAY_TPU_TORCH_NATIVE_CONTROL
+             on (the daemons' and workers' native pumps, the planes, the
+             in-pump GCS service, the native scheduler) and one with it
+             off: 2,000 no-op tasks, 2,000 calls on one actor and 100
+             actor creations, each after a warm-up, as rates beside the
+             card's name and power limit (host numbers of the card's
+             machine); then 20 waves of 4 no-op tasks, each on a warm
+             idle pool, whose leases the lease plane grants natively,
+             their median, p90 and least ms. With the switch on each
+             daemon reports a plane that handled frames, the raylet's
+             native leases in the waves > 0, none degraded; with it off
+             neither has one. No process of either cluster is left.
 Phase 4b also holds the dense engine's prefills to the device plane:
 each hands its KV to decode by local_handoff, so the plane's in_process
 counter rises by at least 2 x n_layers a prefill and host_fallback stays
@@ -358,10 +389,11 @@ steps, `dit_sample_launches` from the sampler's run and
 phase 16's gang worker, `elastic_launches` from phase 18's workers; a
 paged kernel's `disagg_launches` from phase 12's hand-offs, every
 kernel's `rl_launches` from phase 19, `offpolicy_launches` from phase
-20 and `last_launches` from phase 21 (0: no kernel on the RL and Tune
-paths),
-`runtime_launches` from phase 15's replica and `disagg_serve_launches`
-from phase 17's decode replicas; a flash kernel's `dit_shape`
+20, `last_launches` from phase 21 and `control_launches` from phase 22
+(0: no kernel on the RL, Tune and control-plane paths),
+`runtime_launches` from phase 15's replica, `restart_launches` from
+its GCS restart step and `disagg_serve_launches` from phase 17's decode
+replicas; a flash kernel's `dit_shape`
 the times at DiT-XL/2's attention, B 32, H 16, S 256, D 72, non-causal),
 the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -2656,7 +2688,247 @@ def runtime_serving(rt, serve, wants, oracle) -> dict:
             "replica_visible": after["visible"],
             "decode_steps": steps, "graph_replays": replays,
             "eager_launches": after["eager_launches"],
-            "graph_launches": graph, "launches": launches}
+            "graph_launches": graph, "launches": launches}, handle
+
+
+def native_control_stats(what: str) -> dict:
+    """The native planes' counters from the GCS (GetClusterStatus) and the
+    head raylet (GetState), as their status calls report them."""
+    from ray_tpu_torch._private.api_internal import get_core_worker
+
+    cw = get_core_worker()
+    gcs = cw._run(cw.gcs.call("GetClusterStatus", {}))["native_control"]
+    raylet = cw._run(cw.raylet.call("GetState", {}))["native_control"]
+    if gcs is None or raylet is None:
+        raise AssertionError(f"{what}: a native plane is not installed "
+                             f"(gcs {gcs}, raylet {raylet})")
+    return {"gcs": gcs, "raylet": raylet}
+
+
+def native_leases(stats: dict) -> int:
+    """Leases the raylet's lease plane granted on its pump thread."""
+    return stats["raylet"]["methods"]["RequestWorkerLease"]["handled"]
+
+
+def hold_planes(what: str, stats: dict) -> None:
+    """Each daemon's plane handled frames natively, the raylet's granted
+    leases, and neither degraded a method or tripped its breaker."""
+    bad = {k: (p["handled_total"], p["native_degraded_total"],
+               p["divergence_trips_total"]) for k, p in stats.items()}
+    if (any(h <= 0 or d or t for h, d, t in bad.values())
+            or native_leases(stats) <= 0):
+        raise AssertionError(f"{what}: (handled, degraded, tripped) "
+                             f"{bad}, native leases {native_leases(stats)}")
+
+
+def pool_ready(width: int) -> bool:
+    """The driver holds no task lease (each went back after
+    idle_worker_keep_s) and the head raylet's idle pool has `width`
+    workers (GetState)."""
+    from ray_tpu_torch._private.api_internal import get_core_worker
+
+    cw = get_core_worker()
+    if any(cw._leases.values()):
+        return False
+    return cw._run(cw.raylet.call("GetState", {}))["idle_workers"] >= width
+
+
+def lease_waves(rt, fn, waves: int, width: int) -> tuple:
+    """`waves` waves of `width` tasks of `fn`, each once the driver holds
+    no lease and `width` workers are in the raylet's idle pool: every
+    task of a wave asks for a lease, which a warm pool can grant at once
+    (natively, on the lease plane). Returns each wave's ms from submit to
+    its last result, and the ms from request to grant of each lease the
+    driver held at a wave's end (its submitter's own stamps)."""
+    from ray_tpu_torch._private.api_internal import get_core_worker
+
+    cw = get_core_worker()
+    out, grants = [], []
+    for _ in range(waves):
+        wait_until("lease waves: the idle pool",
+                   lambda: pool_ready(width), timeout=60, period=0.01)
+        t0 = time.perf_counter()
+        rt.get([fn.remote() for _ in range(width)], timeout=120)
+        out.append((time.perf_counter() - t0) * 1e3)
+        grants += [(s.lease_granted_ts - s.lease_requested_ts) * 1e3
+                   for slots in list(cw._leases.values())
+                   for s in list(slots)]
+    return out, grants
+
+
+def runtime_native_control(rt) -> dict:
+    """Step 4: the phase's control path ran on the native planes. A plain
+    actor (the actor plane's simple shape) is made and called first, and
+    a CPU task runs twice, the second time once its worker is back in
+    the idle pool, so the lease plane grants its lease; then the GCS's
+    and the raylet's counters: each daemon's frames handled natively
+    > 0, the raylet's native leases > 0, nothing degraded, no divergence
+    trip."""
+    @rt.remote
+    class Probe:
+        def ping(self):
+            return "pong"
+
+    @rt.remote
+    def cpu_ping():
+        return "pong"
+
+    probe = Probe.remote()
+    if rt.get(probe.ping.remote(), timeout=120) != "pong":
+        raise AssertionError("runtime: the probe actor did not answer")
+    rt.kill(probe)
+    rt.get(cpu_ping.remote(), timeout=120)
+    wave_ms = lease_waves(rt, cpu_ping, 1, 1)[0][0]
+    stats = native_control_stats("runtime")
+    log("runtime native control: " + json.dumps(stats))
+    hold_planes("runtime", stats)
+    return {"gcs_handled": stats["gcs"]["handled_total"],
+            "raylet_handled": stats["raylet"]["handled_total"],
+            "native_leases": native_leases(stats),
+            "cpu_task_on_pool_ms": wave_ms,
+            "native_fallthrough": sum(p["native_fallthrough_total"]
+                                      for p in stats.values()),
+            "native_degraded": 0, "divergence_trips": 0}
+
+
+def replica_tokens(rt, replica, payload: dict) -> list:
+    """One stream pulled from a Serve replica through its actor handle
+    (start_stream, then next_chunks until done): no GCS on the way."""
+    sid = rt.get(replica.start_stream.remote("__call__", (payload,), {}),
+                 timeout=120)
+    toks = []
+    while True:
+        out = rt.get(replica.next_chunks.remote(sid, 64), timeout=120)
+        toks += out["values"]
+        if out["done"]:
+            return toks
+
+
+def replica_counters(rt, replica, reset: bool = False) -> dict:
+    return rt.get(replica.handle_request.remote("counters", (reset,), {}),
+                  timeout=120)
+
+
+def wait_until(what: str, fn, timeout: float = 60.0, period: float = 0.05):
+    """fn() until it returns a true value, retrying its errors; returns
+    (value, seconds)."""
+    t0 = time.perf_counter()
+    last = None
+    while time.perf_counter() - t0 < timeout:
+        try:
+            got = fn()
+        except Exception as e:  # the GCS may still be coming up
+            last, got = e, None
+        if got:
+            return got, time.perf_counter() - t0
+        time.sleep(period)
+    raise AssertionError(f"{what}: not within {timeout} s (last error: "
+                         f"{last!r})")
+
+
+def runtime_gcs_restart(rt, serve, handle, wants, oracle,
+                        n_cards: int) -> dict:
+    """Step 5: the GCS killed and restarted with the replica alive. A KV
+    row is written first. While the GCS is down the replica, reached
+    through its actor handle, serves the greedy payloads, each held
+    against the Generator. After restart_gcs(): the raylet re-registers
+    (its GetState count of registrations moves), a new task runs, the
+    Serve controller is found by name and the replica's actor row is
+    ALIVE, the KV row is back, and the replica serves the greedy payloads
+    again through the Serve handle, the same tokens bitwise as with the
+    GCS down. Then the deployment is deleted and a
+    num_gpus=0.25 task gets a card. Returns the figures and K3's
+    launches in the step (the replica's counts, graph replays
+    included)."""
+    from ray_tpu_torch._private.api_internal import get_core_worker
+    from ray_tpu_torch.serve.controller import CONTROLLER_NAME
+
+    cfg = LLAMA3_8B
+    cw = get_core_worker()
+    node = rt._runtime_node
+    greedy = [p for p in serving_payloads(cfg)[0] if "temperature" not in p]
+    replica = handle._get_replicas()[0]
+    replica_id = replica._actor_id.hex()
+    cw._run(cw.gcs.call("KVPut", {"ns": "chip_smoke", "key": b"phase 15",
+                                  "value": b"written before the kill"}))
+    regs0 = cw._run(cw.raylet.call("GetState", {}))["gcs_registrations"]
+    before = replica_counters(rt, replica, reset=True)
+    node.kill_gcs()
+    t_down = time.perf_counter()
+    down = [replica_tokens(rt, replica, p) for p in greedy]
+    down_s = time.perf_counter() - t_down
+    for p, toks, want in zip(greedy, down, wants):
+        hold_greedy("runtime, GCS down", oracle, cfg, p["prompt_tokens"],
+                    toks, want, BF16_TIE)
+    t_restart = time.perf_counter()
+    node.restart_gcs()
+    _, reg_s = wait_until("runtime: raylet re-registration", lambda: cw._run(
+        cw.raylet.call("GetState", {}))["gcs_registrations"] > regs0)
+
+    @rt.remote
+    def first_task():
+        return "ran"
+
+    if rt.get(first_task.remote(), timeout=120) != "ran":
+        raise AssertionError("runtime: no task after the GCS restart")
+    task_s = time.perf_counter() - t_restart
+    wait_until("runtime: the Serve controller by name",
+               lambda: rt.get_actor(CONTROLLER_NAME, namespace="serve"))
+    info = cw._run(cw.gcs.call("GetActorInfo", {"actor_id": replica_id}))
+    if (info or {}).get("state") != "ALIVE":
+        raise AssertionError(f"runtime: replica's actor row after the "
+                             f"restart: {info}")
+    kv = cw._run(cw.gcs.call("KVGet", {"ns": "chip_smoke",
+                                       "key": b"phase 15"}))
+    if kv.get("value") != b"written before the kill":
+        raise AssertionError(f"runtime: KV row after the restart: {kv}")
+    recs = [{} for _ in greedy]
+    for p, rec in zip(greedy, recs):
+        handle_stream(handle, p, rec)
+    for p, rec, want in zip(greedy, recs, wants):
+        if "error" in rec:
+            raise AssertionError(f"runtime, GCS restarted: {rec}")
+        hold_greedy("runtime, GCS restarted", oracle, cfg,
+                    p["prompt_tokens"], rec["tokens"], want, BF16_TIE)
+    # One stream at a time on the same replica both times: the same
+    # tokens, bitwise, whether the GCS was down or back.
+    if [r["tokens"] for r in recs] != down:
+        raise AssertionError("runtime: the replica's tokens with the GCS "
+                             "down differ from its tokens after the "
+                             "restart")
+    after = replica_counters(rt, replica)
+    replays = after["graph_replays"] - before["graph_replays"]
+    graph = {k: n * replays for k, n in after["graph_launches"].items()}
+    launches = {k: n + graph.get(k, 0)
+                for k, n in after["eager_launches"].items()}
+    native_after = native_control_stats("runtime, GCS restarted")
+    serve.delete("LlamaReplica")
+    wait_until("runtime: the replica's card back",
+               lambda: rt.available_resources().get("GPU") == n_cards,
+               timeout=120)
+
+    @rt.remote(num_gpus=0.25)
+    def card_share():
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    visible = rt.get(card_share.remote(), timeout=120)
+    if not visible:
+        raise AssertionError("runtime: a num_gpus=0.25 task after the "
+                             "restart got no card")
+    return {"gcs_down_s": down_s,
+            "restart_to_reregistration_s": reg_s,
+            "restart_to_first_task_s": task_s,
+            "down_greedy_equal": sum(t == w for t, w in zip(down, wants)),
+            "after_greedy_equal": sum(r["tokens"] == w
+                                      for r, w in zip(recs, wants)),
+            "share_task_visible": visible,
+            "native_after_restart": {
+                k: {f: v[f] for f in ("handled_total",
+                                      "native_fallthrough_total",
+                                      "native_degraded_total",
+                                      "divergence_trips_total")}
+                for k, v in native_after.items()},
+            "restart_launches": launches}
 
 
 def runtime_phase(card: str, phase4: dict) -> dict:
@@ -2666,7 +2938,8 @@ def runtime_phase(card: str, phase4: dict) -> dict:
     card's free memory is read once the driver holds what it keeps for
     the phase (the oracle), and again after shutdown: what the cluster's
     processes held must be back (64 MiB of slack). `phase4` is phase 4's
-    run, whose figures are logged beside this phase's."""
+    run, whose figures are logged beside this phase's. Also returns K3's
+    launches in the GCS restart step (runtime_gcs_restart)."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
 
@@ -2683,7 +2956,10 @@ def runtime_phase(card: str, phase4: dict) -> dict:
         start = runtime_start_checks(rt, n_cards,
                                      torch.cuda.get_device_name(0))
         tensors = runtime_tensor_checks(rt)
-        run = runtime_serving(rt, serve, wants, oracle)
+        run, handle = runtime_serving(rt, serve, wants, oracle)
+        native = runtime_native_control(rt)
+        restart = runtime_gcs_restart(rt, serve, handle, wants, oracle,
+                                      n_cards)
     finally:
         procs = cluster_processes(rt._runtime_node)
         t_down = time.perf_counter()
@@ -2698,7 +2974,9 @@ def runtime_phase(card: str, phase4: dict) -> dict:
     log("runtime serving: " + json.dumps({
         "card": card, "init_s": init_s, **start, **tensors, **run, **down,
         "phase4_in_process": phase4}))
-    return run["launches"]
+    log("runtime native control and GCS restart: " + json.dumps({
+        "card": card, **native, **restart}))
+    return run["launches"], restart["restart_launches"]
 
 
 # Phase 16: the gang's worker holds half of the card; a landing task
@@ -4552,6 +4830,135 @@ def last_learners_phase(card: str) -> dict:
     return {**dict(pa.launch_counts), **dict(fa.launch_counts)}
 
 
+# Phase 22: the control path's rates, on the native planes and on the
+# Python path (RAY_TPU_TORCH_NATIVE_CONTROL, the one switch). The lease
+# waves: CONTROL_WAVES waves of CONTROL_WAVE_TASKS no-op tasks, each on
+# a warm idle pool, on clusters that return an idle lease after
+# CONTROL_KEEP_S (the default 2 s would make the waves 2 s apart).
+CONTROL_SWITCH = "RAY_TPU_TORCH_NATIVE_CONTROL"
+CONTROL_TASKS, CONTROL_CALLS, CONTROL_ACTORS = 2000, 2000, 100
+CONTROL_WAVES, CONTROL_WAVE_TASKS, CONTROL_KEEP_S = 20, 4, 0.2
+
+
+def control_plane_rates(native: bool) -> dict:
+    """One fresh cluster (ray_tpu_torch.init()'s defaults but idle leases
+    returned after CONTROL_KEEP_S) with the switch on or off: no-op
+    tasks, calls on one actor and actor creations per second, after a
+    warm-up of each, and the lease waves' ms. With the switch on each
+    daemon reports an installed plane that handled frames, the raylet's
+    granted leases in the waves, and nothing degraded; with it off
+    neither has one. No process of the cluster is left after its
+    shutdown."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.config import Config
+
+    saved = os.environ.get(CONTROL_SWITCH)
+    os.environ[CONTROL_SWITCH] = "1" if native else "0"
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    try:
+        t0 = time.perf_counter()
+        rt.init(config=Config(idle_worker_keep_s=CONTROL_KEEP_S))
+        init_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop(CONTROL_SWITCH, None)
+        else:
+            os.environ[CONTROL_SWITCH] = saved
+    try:
+        @rt.remote
+        def noop():
+            return None
+
+        @rt.remote(num_cpus=0)
+        class Sink:
+            def call(self):
+                return None
+
+        rt.get([noop.remote() for _ in range(200)], timeout=300)
+        t0 = time.perf_counter()
+        rt.get([noop.remote() for _ in range(CONTROL_TASKS)], timeout=300)
+        tasks_s = time.perf_counter() - t0
+        leases0 = native_leases(native_control_stats("control plane")) \
+            if native else 0
+        waves, grants = lease_waves(rt, noop, CONTROL_WAVES,
+                                    CONTROL_WAVE_TASKS)
+        waves, grants = sorted(waves), sorted(grants)
+        wave_leases = native_leases(native_control_stats(
+            "control plane")) - leases0 if native else 0
+        sink = Sink.remote()
+        rt.get([sink.call.remote() for _ in range(100)], timeout=300)
+        t0 = time.perf_counter()
+        rt.get([sink.call.remote() for _ in range(CONTROL_CALLS)],
+               timeout=300)
+        calls_s = time.perf_counter() - t0
+        warm = [Sink.remote() for _ in range(4)]
+        rt.get([a.call.remote() for a in warm], timeout=300)
+        t0 = time.perf_counter()
+        actors = [Sink.remote() for _ in range(CONTROL_ACTORS)]
+        rt.get([a.call.remote() for a in actors], timeout=300)
+        actors_s = time.perf_counter() - t0
+        for a in [sink, *warm, *actors]:
+            rt.kill(a)
+        from ray_tpu_torch._private.api_internal import get_core_worker
+
+        cw = get_core_worker()
+        gcs = cw._run(cw.gcs.call("GetClusterStatus", {}))["native_control"]
+        raylet = cw._run(cw.raylet.call("GetState", {}))["native_control"]
+    finally:
+        procs = cluster_processes(rt._runtime_node)
+        t_down = time.perf_counter()
+        rt.shutdown()
+    down = cluster_left("control plane", procs, free0, t_down)
+    if native:
+        if gcs is None or raylet is None:
+            raise AssertionError(f"control plane: a plane is missing with "
+                                 f"the switch on ({gcs}, {raylet})")
+        hold_planes("control plane", {"gcs": gcs, "raylet": raylet})
+        if wave_leases <= 0:
+            raise AssertionError("control plane: the lease plane granted "
+                                 "no lease in the waves")
+        planes = {"gcs_handled": gcs["handled_total"],
+                  "gcs_fallthrough": gcs["native_fallthrough_total"],
+                  "raylet_handled": raylet["handled_total"],
+                  "raylet_fallthrough": raylet["native_fallthrough_total"],
+                  "native_leases": native_leases({"raylet": raylet}),
+                  "wave_native_leases": wave_leases}
+    else:
+        if gcs is not None or raylet is not None:
+            raise AssertionError("control plane: a native plane installed "
+                                 "with the switch off")
+        planes = {}
+    return {"init_s": init_s, "tasks_per_s": CONTROL_TASKS / tasks_s,
+            "actor_calls_per_s": CONTROL_CALLS / calls_s,
+            "actor_creations_per_s": CONTROL_ACTORS / actors_s,
+            "wave_ms_p50": waves[len(waves) // 2],
+            "wave_ms_p90": waves[int(len(waves) * 0.9)],
+            "wave_ms_min": waves[0],
+            "grant_ms_p50": grants[len(grants) // 2] if grants else None,
+            "grant_ms_p90": grants[int(len(grants) * 0.9)] if grants else None,
+            "grants_timed": len(grants),
+            **planes, "shutdown_s": down["shutdown_s"],
+            "cluster_processes": down["cluster_processes"]}
+
+
+def control_plane_phase(card: str) -> dict:
+    """Phase 22: the control path's rates on two fresh clusters, the
+    native planes (the default) and the Python path. No model; host
+    numbers of the card's machine, logged beside the card. No kernel
+    lies on this path: returns this process's kernel counts over the
+    phase (0)."""
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    out = {"native": control_plane_rates(True),
+           "python": control_plane_rates(False)}
+    log("control plane: " + json.dumps({
+        "card": card, "tasks": CONTROL_TASKS, "actor_calls": CONTROL_CALLS,
+        "actor_creations": CONTROL_ACTORS, "lease_waves": CONTROL_WAVES,
+        "wave_tasks": CONTROL_WAVE_TASKS, "keep_s": CONTROL_KEEP_S, **out}))
+    return {**dict(pa.launch_counts), **dict(fa.launch_counts)}
+
+
 def run_phase(name: str, fn, *args):
     """Runs one phase; logs its time and peak device memory, then frees
     what it left in the allocator's cache."""
@@ -4572,7 +4979,16 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.build_all()
+    # The runtime's C++ (g++, one thread a library) beside the kernels'
+    # nvcc builds; phase 15's init then starts daemons that find them.
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch._private import native_build
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        runtime_build = pool.submit(native_build.build_all)
+        _build.build_all()
+        runtime_build.result()
     log(f"build: {time.perf_counter() - t0:.1f} s")
     log(_build.build_log)
 
@@ -4587,8 +5003,8 @@ def main():
     disagg_launches = run_phase("disaggregated prefill", disagg_phase, card,
                                 serve_params)
     del serve_params
-    runtime_launches = run_phase("runtime serving", runtime_phase, card,
-                                 serving_run)
+    runtime_launches, restart_launches = run_phase(
+        "runtime serving", runtime_phase, card, serving_run)
     run_phase("train parity", train_parity_phase)
     flash_counts = run_phase("training", training_phase, card)
     sharded_counts = run_phase("sharded training", sharded_training_phase,
@@ -4608,15 +5024,18 @@ def main():
     offpolicy_counts = run_phase("off-policy rl", offpolicy_phase, card)
     last_counts = run_phase("last learners and tune", last_learners_phase,
                             card)
+    control_counts = run_phase("control plane", control_plane_phase, card)
 
     for name, row in rows.items():
         row["launches"] = counts[name]
         row["disagg_launches"] = disagg_launches[name]
         row["runtime_launches"] = runtime_launches[name]
+        row["restart_launches"] = restart_launches[name]
         row["disagg_serve_launches"] = disagg_serve_counts[name]
         row["rl_launches"] = rl_counts[name]
         row["offpolicy_launches"] = offpolicy_counts[name]
         row["last_launches"] = last_counts[name]
+        row["control_launches"] = control_counts[name]
     for name, row in flash_rows.items():
         row["launches"] = flash_counts[name]
         row["sharded_launches"] = sharded_counts[name]
@@ -4630,6 +5049,7 @@ def main():
         row["rl_launches"] = rl_counts[name]
         row["offpolicy_launches"] = offpolicy_counts[name]
         row["last_launches"] = last_counts[name]
+        row["control_launches"] = control_counts[name]
     print(json.dumps({"kernels": [rows[n] for n in KERNELS]
                       + [flash_rows[n] for n in FLASH_KERNELS]}))
     print(card_line())

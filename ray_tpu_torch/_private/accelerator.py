@@ -11,9 +11,9 @@ accelerator is an NVIDIA card:
   `torch.cuda.device_count()` may call cuInit, and a process forked
   after cuInit (the zygote's children) fails its first CUDA call.
 - The raylet hands each GPU lease distinct card ids from a per-node free
-  list (`resource_core.py`). At task start a pool worker sets
-  CUDA_VISIBLE_DEVICES to its lease's ids, or to "" when it holds no
-  GPU, before anything in the process touches CUDA.
+  list in the native core (`native_raylet_core.py`). At task start a
+  pool worker sets CUDA_VISIBLE_DEVICES to its lease's ids, or to ""
+  when it holds no GPU, before anything in the process touches CUDA.
 - A worker that has already initialised CUDA cannot change what it sees.
   A task whose lease names other cards fails retryable there and the
   worker exits, so the retry lands on a fresh worker

@@ -15,6 +15,8 @@ import tempfile
 from dataclasses import dataclass, field, fields
 from typing import Any
 
+from ray_tpu_torch._private import native_policy
+
 _ENV_PREFIX = "RAY_TPU_TORCH_"
 
 
@@ -110,6 +112,15 @@ class Config:
     temp_dir: str = os.path.join(tempfile.gettempdir(),
                                  "ray_tpu_torch_sessions")  # RAY_TPU_TORCH_TEMP_DIR
     log_to_driver: bool = True
+
+    @property
+    def fastpath(self) -> bool:
+        """The native fastpath IO plane (csrc/fastpath.cc): the worker
+        task loop and the submitter push/done cycle ride a C++ epoll
+        frame pump instead of asyncio (reference analog: the daemons'
+        gRPC/asio event loops are C++ end-to-end). On with the native
+        control path's one switch, RAY_TPU_TORCH_NATIVE_CONTROL."""
+        return native_policy.native_control_on()
 
     def __post_init__(self):
         for f in fields(self):

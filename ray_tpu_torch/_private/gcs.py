@@ -16,10 +16,10 @@ gcs_task_manager). One asyncio process owns all cluster metadata:
   notify frames (reference: src/ray/pubsub/ + pubsub_handler)
 - job table and task-event buffer for the state API
 
-Tables live in memory only: the reference persists them through its
-native WAL store (src/gcs_store.cc), which returns in the port with the
-other native control planes (ROADMAP A1, second part). This is the
-Python control path the reference keeps behind RAY_TPU_NATIVE_CONTROL=0.
+Tables persist through the native WAL store (csrc/gcs_store.cc,
+native_gcs_store): mutations write through before the reply, and a
+restarted GCS rehydrates from it (the reference's Redis-backed
+gcs_table_storage is the model).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import threading
 import time
 import uuid
 from collections import OrderedDict, defaultdict, deque
@@ -76,6 +77,45 @@ NODE_DRAINED = "DRAINED"
 NODE_DEAD = "DEAD"
 
 DRAIN_REASONS = ("preemption", "idle", "manual")
+
+# GCS string rungs → native_policy.NODE_* ints for the actor plane's
+# fault-aware ladder view. DRAINED maps onto the draining rung: both
+# exclude the node from new native placements without killing it.
+_PLANE_NODE_STATES = {
+    NODE_ALIVE: 0,
+    NODE_SUSPECT: 1,
+    NODE_DRAINING: 2,
+    NODE_DRAINED: 2,
+    NODE_DEAD: 3,
+}
+
+
+def _plane_node_state(state: str) -> int:
+    return _PLANE_NODE_STATES.get(state, 1)
+
+# EV_INJECT token the native actor plane stamps on its mirror events
+# (arrives in the conn_id slot — see fast_rpc.FastRpcServer.inject_handler).
+_ACTOR_PLANE_TOKEN = 1
+
+
+class _NativeServiceStack:
+    """The pump's single native_service slot when two in-pump services
+    are chained (actor plane → KV/pubsub). close() tears down front to
+    back — the plane holds chain pointers into the KV service, so it
+    must die first (both only after the pump loop thread is joined)."""
+
+    def __init__(self, plane, svc):
+        self._plane = plane
+        self._svc = svc
+
+    def close(self) -> None:
+        if self._plane is not None:
+            self._plane.close()
+            self._plane = None
+        if self._svc is not None:
+            self._svc.close()
+            self._svc = None
+
 
 # Per-subscriber fanout queue bound. State channels coalesce
 # latest-wins per entity, so depth only grows with DISTINCT entities in
@@ -178,8 +218,36 @@ class _SubscriberPump:
 
 
 class GcsServer:
-    def __init__(self, config: Config | None = None):
+    def __init__(self, config: Config | None = None,
+                 persistence_path: str | None = None):
         self.config = config or Config()
+        # File-backed metadata persistence (the reference's Redis-backed
+        # gcs_table_storage role): tables snapshot here so a restarted GCS
+        # resumes with its actor/PG/KV/job state; raylets re-register
+        # (reference: NotifyGCSRestart resync, node_manager.cc:1168).
+        self.persistence_path = persistence_path
+        # Dirty TABLE names awaiting flush (see _MUTATING); a direct
+        # mark_dirty() with no argument dirties everything.
+        self._dirty: set = set()
+        # Native durable table store (csrc/gcs_store.cc): rows are written
+        # through as WAL appends on each flush — only CHANGED rows hit
+        # disk (hash-diffed), and a compaction rewrites the snapshot when
+        # the WAL outgrows it. Opened in start().
+        self._store = None
+        self._row_hashes: dict[tuple[str, str], int] = {}
+        self._row_sizes: dict[tuple[str, str], int] = {}
+        self._persisted_bytes = 0  # total state size for compaction ratio
+        self._flush_lock = threading.Lock()
+        # Rows touched by in-flight mutating handlers: (table, key)
+        # entries recorded AFTER the in-memory mutation, drained by the
+        # handler wrapper and written through the WAL BEFORE the RPC
+        # reply (per-mutation durability — reference: redis
+        # store_client_kv write-through). Shared across concurrent
+        # handlers on purpose: flushing another handler's already-applied
+        # mutation early is harmless, and each wrapper drains the list
+        # after its own handler ran, so its own rows are always covered.
+        self._touched: list = []
+        self._needs_sync = False  # WAL appends since last fdatasync
         self.nodes: dict[str, NodeInfo] = {}
         self.node_conns: dict[str, rpc.Connection] = {}
         # Per-node GCS->raylet call sessions (see _call_node): the GCS
@@ -202,21 +270,119 @@ class GcsServer:
         self._relocation_order: deque = deque()
         self._relocation_cap = 65536
         self.subscribers: dict[str, set[rpc.Connection]] = defaultdict(set)
-        # Fanout: one _SubscriberPump per subscriber conn + shared
-        # counters. Surfaced in GetClusterStatus -> status CLI.
+        # Python-fallback fanout: one _SubscriberPump per subscriber
+        # conn + shared counters (also fed by the native fanout path's
+        # batch counter). Surfaced in GetClusterStatus -> status CLI +
+        # /metrics.
         self._fanout_pumps: dict = {}
         self._fanout_stats = {"enqueued": 0, "sent": 0, "coalesced": 0,
-                              "dropped": 0, "batches": 0, "max_depth": 0}
+                              "dropped": 0, "batches": 0, "max_depth": 0,
+                              "native_batches": 0}
+        # Streaming recovery: True while a restarted GCS is
+        # still rehydrating persisted state in the background; flips
+        # False when the recovery stream drains. Grants and answers
+        # begin within the bounded priority prefix, not after the full
+        # table replay.
+        self.recovering = False
+        self._recovery_backlog: deque = deque()
+        self._recovery_stats = {"prefix_rows": 0, "streamed_rows": 0,
+                                "prefix_ms": 0.0, "stream_ms": 0.0}
+        # Native-pump server when available (csrc/fastpath.cc): accept,
+        # framing, and sends ride the C++ epoll thread; table mutations
+        # stay Python above the loop (reference: gcs_server.h:79 runs on
+        # a C++ asio loop end-to-end).
         from ray_tpu_torch._private.fast_rpc import make_server
 
         self._server = make_server(self._handlers(), name="gcs")
+        # Native in-pump protocol service (csrc/gcs_service.cc): when the
+        # daemon runs on the fastpath pump, the KV table and pubsub
+        # handlers execute entirely in C++ on the loop thread (parse →
+        # mutate → WAL write-through → reply) and their frames never
+        # reach Python. Installed by _native_service_factory at server
+        # start; None on the asyncio fallback.
+        self._native_svc = None
+        # Native actor plane (csrc/gcs_actor.cc, RAY_TPU_TORCH_NATIVE_CONTROL=1):
+        # the RegisterActor→CreateActor→ActorReady ladder for the simple
+        # hot shape runs on the pump thread; Python mirrors state off
+        # EV_INJECT events (_on_native_inject) and keeps every routed
+        # shape (named/PG/strategy/resource actors).
+        self._actor_plane = None
+        # Divergence breaker bookkeeping: once the mirror
+        # audit trips, owned methods degrade to the Python handlers and
+        # stay degraded (re-arming needs an operator restart — the
+        # divergence root cause must be understood, not retried).
+        self._native_degraded_reason = ""
+        self._native_divergence_trips = 0
+        self._audit_proto_seen = 0
+        # Actor ids whose re-kick _load_state deferred to the native
+        # plane's rehydration; re-kicked via Python if install fails.
+        self._native_rekick_deferred: list = []
+        self._pending_native_kv: list = []   # (key_hex, blob) restore rows
+        self._native_appends_seen = 0
+        self._native_walfails_seen = 0
         self._health_task: asyncio.Task | None = None
-        self._aux_tasks: list = []
+        self._aux_tasks: list = []  # audit + restored-node reaper
         self._actor_seq = 0
         self.start_time = time.time()
+        # Native C++ scheduling core (csrc/scheduler.cc). Mirrors the
+        # node table and answers actor/PG placement queries; the
+        # pure-Python policies below run only with
+        # RAY_TPU_TORCH_NATIVE_CONTROL=0 (a core that does not build
+        # raises).
+        from ray_tpu_torch._private import native_scheduler
+
+        self.native_sched = None
+        if native_scheduler.available():
+            self.native_sched = native_scheduler.ClusterScheduler()
+
+    # Mutating RPC -> the persistence tables the HANDLER ITSELF touches.
+    # The flush packs + hash-diffs only DIRTY tables, so a KV-heavy
+    # cluster does not re-serialize the kv namespace when an actor
+    # changed state. Cascades (node death failing over actors, job
+    # finish killing actors or GCing kv packages) run through internal
+    # paths that call mark_dirty with their OWN tables — listing them
+    # here too would force full repacks of the largest tables for
+    # handlers that changed nothing in them.
+    _MUTATING = {
+        "RegisterNode": ("nodes",),
+        "NotifyNodeDead": ("nodes",),
+        "DrainNode": ("nodes",),
+        "DrainComplete": ("nodes", "actors"),
+        "KVPut": ("kv",),
+        "KVDel": ("kv",),
+        "RegisterActor": ("actors", "named_actors"),
+        "ActorReady": ("actors",),
+        "ReportActorDeath": ("actors", "named_actors"),
+        "KillActor": ("actors", "named_actors"),
+        "RegisterJob": ("jobs",),
+        "FinishJob": ("jobs",),
+        "CreatePlacementGroup": ("placement_groups",),
+        "RemovePlacementGroup": ("placement_groups",),
+    }
 
     def _handlers(self):
-        return {
+        def wrap(name, fn):
+            tables = self._MUTATING.get(name)
+            if tables is None:
+                return fn
+
+            async def dirty(conn, payload, fn=fn, tables=tables):
+                try:
+                    return await fn(conn, payload)
+                finally:
+                    # Write-through BEFORE the reply goes out: rows the
+                    # handler _touch()ed hit the WAL now, so a GCS
+                    # killed -9 right after the ack replays them.
+                    # mark_dirty stays as the hash-diffed catch-all for
+                    # mutation sites without a _touch.
+                    if self._touched:
+                        touched, self._touched = self._touched, []
+                        self._persist_touched(touched)
+                    self.mark_dirty(tables)
+
+            return dirty
+
+        return {name: wrap(name, fn) for name, fn in {
             "RegisterNode": self.handle_register_node,
             "Heartbeat": self.handle_heartbeat,
             "GetAllNodes": self.handle_get_all_nodes,
@@ -250,25 +416,745 @@ class GcsServer:
             "GetClusterStatus": self.handle_get_cluster_status,
             "GetEventLoopStats": self.handle_get_event_loop_stats,
             "GetConfig": self.handle_get_config,
-        }
+        }.items()}
 
     async def start(self, host: str = "127.0.0.1", port: int = 0):
+        if self.persistence_path:
+            from ray_tpu_torch._private.native_gcs_store import GcsTableStore
+
+            self._store = GcsTableStore(self.persistence_path)
+            self._load_state()
+            from ray_tpu_torch.util import events
+
+            events.configure(os.path.dirname(self.persistence_path), "gcs")
+            events.record("INFO", "gcs", "control plane started")
+        from ray_tpu_torch._private.fast_rpc import FastRpcServer
+
+        if isinstance(self._server, FastRpcServer):
+            self._server.service_factory = self._native_service_factory
         addr = await self._server.start(host, port)
         self._health_task = supervised_task(self._health_check_loop(),
                                             name="gcs-health-loop")
+        if self._actor_plane is not None:
+            self._aux_tasks.append(supervised_task(
+                self._native_audit_loop(), name="gcs-native-audit"))
+        if self.persistence_path:
+            self._persist_task = supervised_task(self._persist_loop(),
+                                                 name="gcs-persist-loop")
+            self._aux_tasks.append(supervised_task(
+                self._reap_restored_nodes(), name="gcs-reap-restored"))
+            if self.recovering:
+                # The priority prefix is live; the rest of the persisted
+                # state rehydrates behind the serving path.
+                self._aux_tasks.append(supervised_task(
+                    self._recovery_stream(), name="gcs-recovery-stream"))
         logger.info("GCS listening on %s:%s", *addr)
         return addr
 
+    def _native_service_factory(self, pump):
+        """Install the native in-pump services (called by
+        FastRpcServer.start between pump creation and listen): the
+        KV/pubsub service, and — under RAY_TPU_TORCH_NATIVE_CONTROL=1 — the
+        actor plane chained in FRONT of it (both share the single
+        fpump_set_service slot; unowned frames flow plane → KV service
+        → Python). With RAY_TPU_TORCH_NATIVE_CONTROL=0 the Python
+        handlers take KV and pubsub, re-homing kv rows that _load_state
+        stashed for the native side. A service that fails to install
+        raises (after closing what it made): nothing falls back to
+        Python unnoticed."""
+        from ray_tpu_torch._private import native_gcs_service
+
+        svc = None
+        if native_gcs_service.available():
+            try:
+                svc = native_gcs_service.GcsNativeService(pump, self._store)
+                for key_hex, blob in self._pending_native_kv:
+                    ns, k = rpc.unpack(bytes.fromhex(key_hex))
+                    svc.kv_load(ns, rpc.pack(k), blob)
+                # Hook the pump only once every restored row loaded — a
+                # partially-loaded service must never answer frames.
+                svc.install()
+                self._pending_native_kv = []
+                self._native_svc = svc
+                logger.info(
+                    "native GCS service active (KV + pubsub in-pump)")
+            except Exception:
+                logger.exception("native GCS service failed to install")
+                # The pump hook was never installed (install() is the
+                # last step), so the partially-constructed service can be
+                # destroyed safely.
+                if svc is not None:
+                    try:
+                        svc.close()
+                    except Exception:
+                        logger.exception("native GCS service close failed")
+                raise
+        if svc is None:
+            # Switch off: re-home any rows _load_state stashed for the
+            # native side into the Python tables.
+            for key_hex, blob in self._pending_native_kv:
+                self._restore_kv_row(key_hex, blob)
+            self._pending_native_kv = []
+        stack = self._install_actor_plane(pump, svc)
+        if stack is not None:
+            return stack
+        return svc
+
+    def _install_actor_plane(self, pump, svc):
+        """Chain the native actor plane ahead of the KV service. Returns
+        the combined service stack (close() tears down both in order) or
+        None when RAY_TPU_TORCH_NATIVE_CONTROL is off — in which case
+        the KV service's own hook (if any) stays active. A plane that
+        fails to install raises."""
+        from ray_tpu_torch._private import native_actor_plane
+
+        if not native_actor_plane.available():
+            self._rekick_deferred_native_actors()
+            return None
+        plane = None
+        try:
+            plane = native_actor_plane.GcsActorPlane(
+                pump, inject_token=_ACTOR_PLANE_TOKEN)
+            if svc is not None:
+                plane.chain(svc.frame_addr(), svc.close_addr(), svc._h)
+            # Crash rehydration (before install(), so the first frame the
+            # plane answers already sees the replayed world): stamp the
+            # server incarnation epoch — a replayed request from before
+            # the restart carries the old epoch and, with the reply cache
+            # gone, must be rejected as stale rather than wrongly deduped
+            # or silently re-executed — then replay the persisted node
+            # table and every native-owned actor row. Restored nodes are
+            # not up (no conn yet); re-registration re-drives parked
+            # PENDING actors via the plane's node_up path.
+            plane.set_epoch(rpc._server_sessions.epoch)
+            for nid, node in self.nodes.items():
+                plane.restore_node(nid, _plane_node_state(node.state))
+            for aid, a in self._iter_restorable_actors():
+                if not a.get("native"):
+                    continue
+                if a["state"] == ACTOR_ALIVE:
+                    pstate = "ALIVE"
+                elif a["state"] in (ACTOR_PENDING, ACTOR_RESTARTING):
+                    pstate = "PENDING"
+                else:
+                    continue
+                plane.restore_actor(
+                    aid, pstate, a.get("restarts", 0),
+                    a.get("max_restarts", 0), a.get("node_id") or "",
+                    rpc.pack(a["spec"]))
+            self._native_rekick_deferred = []
+            # install() replaces the KV service's pump hook — the plane
+            # forwards everything it doesn't own down the chain, so
+            # this must be the LAST step (a half-wired plane must never
+            # answer frames).
+            plane.install()
+            self._server.inject_handler = self._on_native_inject
+            self._actor_plane = plane
+            logger.info("native control plane active (actor ladder "
+                        "in-pump, graftgen validators + reply cache)")
+            return _NativeServiceStack(plane, svc)
+        except Exception:
+            logger.exception("native actor plane failed to install")
+            if plane is not None:
+                try:
+                    plane.close()
+                except Exception:
+                    logger.exception("native actor plane close failed")
+            raise
+
+    def _iter_restorable_actors(self):
+        """Actor rows for the plane's pre-install rehydration: the
+        prefix-applied tables plus rows still staged on the recovery
+        backlog (decoded at load time). The plane must see the full
+        replayed world before install(); the Python mirror of the
+        backlog rows catches up via _recovery_stream."""
+        yield from self.actors.items()
+        for table, key_hex, _blob, row in self._recovery_backlog:
+            if table == "actors" and row is not None:
+                yield bytes.fromhex(key_hex).decode(), row
+
+    def _rekick_deferred_native_actors(self) -> None:
+        """_load_state deferred these re-kicks to the plane's
+        rehydration; with no plane, Python's scheduler owns them."""
+        deferred, self._native_rekick_deferred = (
+            self._native_rekick_deferred, [])
+        for actor_id in deferred:
+            a = self.actors.get(actor_id)
+            if a is None or a["state"] not in (ACTOR_PENDING,
+                                               ACTOR_RESTARTING):
+                continue
+            a.pop("native", None)
+            asyncio.get_event_loop().call_later(
+                1.0, lambda aid=actor_id: supervised_task(
+                    self._schedule_actor(aid)))
+
+    # ---------- native actor plane mirror ----------
+    # The plane decides on the pump thread and narrates every decision
+    # through EV_INJECT ([event, payload] msgpack bodies); Python applies
+    # them to the authoritative tables in arrival order. Mirror handlers
+    # mutate state before their first await, so interleaving with RPC
+    # handlers cannot reorder the per-actor ladder.
+
+    def _on_native_inject(self, token, body):
+        if token != _ACTOR_PLANE_TOKEN:
+            return
+        try:
+            event, payload = rpc.unpack(body)
+        except Exception:
+            logger.exception("native actor plane: bad inject event")
+            return
+        supervised_task(self._apply_native_actor_event(event, payload),
+                        name=f"native-actor-{event}")
+
+    async def _apply_native_actor_event(self, event: str, payload):
+        if event == "registered":
+            # payload is the original RegisterActor payload (the plane
+            # only owns nameless, strategy-less, resource-less actors).
+            for stamp in (rpc._SID_KEY, rpc._RSEQ_KEY, rpc._ACK_KEY):
+                payload.pop(stamp, None)
+            actor_id = payload["actor_id"]
+            self.actors[actor_id] = {
+                "actor_id": actor_id,
+                "job_id": payload.get("job_id", ""),
+                "name": "",
+                "namespace": payload.get("namespace") or "default",
+                "class_name": payload.get("class_name", ""),
+                "state": ACTOR_PENDING,
+                "spec": payload["spec"],
+                "resources": {},
+                "max_restarts": payload.get("max_restarts", 0),
+                "restarts": 0,
+                "node_id": None,
+                "address": None,
+                "detached": payload.get("detached", False),
+                "owner": payload.get("owner"),
+                "death_cause": None,
+                "strategy": None,
+                "placement_group": "",
+                "pg_bundle_index": -1,
+                "native": True,
+            }
+            self.mark_dirty(("actors",))
+            self._record_task_event(
+                self._creation_task_id(actor_id, payload["spec"]),
+                payload.get("class_name", ""), "CREATE_REGISTERED",
+                job_id=payload.get("job_id", ""), actor_id=actor_id)
+            return
+        actor_id = payload.get("actor_id", "")
+        a = self.actors.get(actor_id)
+        if a is None:
+            return
+        if event == "scheduled":
+            node_id = payload["node_id"]
+            a["node_id"] = node_id
+            self.mark_dirty(("actors",))
+            # Same transient placement debit as _schedule_actor: the
+            # plane charges CPU:1 so bursts fan out; the next heartbeat
+            # restores ground truth.
+            node = self.nodes.get(node_id)
+            if node is not None:
+                subtract_resources(node.available_resources, {"CPU": 1.0})
+            if self.native_sched is not None:
+                self.native_sched.debit_node(node_id, {"CPU": 1.0})
+            self._record_task_event(
+                self._creation_task_id(actor_id, a["spec"]),
+                a["class_name"], "CREATE_SCHEDULED",
+                job_id=a.get("job_id", ""), actor_id=actor_id,
+                target_node=node_id)
+        elif event == "ready":
+            a["state"] = ACTOR_ALIVE
+            a["address"] = payload.get("address")
+            a["restarts"] = payload.get("restarts", a["restarts"])
+            self.mark_dirty(("actors",))
+            self._record_task_event(
+                self._creation_task_id(actor_id, a["spec"]),
+                a["class_name"], "CREATE_READY",
+                job_id=a.get("job_id", ""), actor_id=actor_id)
+            await self.publish("ACTOR", {
+                "actor_id": actor_id, "state": ACTOR_ALIVE,
+                "address": a["address"], "restarts": a["restarts"]})
+        elif event == "restarting":
+            a["restarts"] = payload.get("restarts", a["restarts"] + 1)
+            a["state"] = ACTOR_RESTARTING
+            a["address"] = None
+            self.mark_dirty(("actors",))
+            await self.publish("ACTOR", {
+                "actor_id": actor_id, "state": ACTOR_RESTARTING,
+                "reason": payload.get("reason", "")})
+        elif event == "dead":
+            a.pop("native", None)
+            a["state"] = ACTOR_DEAD
+            a["address"] = None
+            a["death_cause"] = payload.get("reason", "")
+            self.mark_dirty(("actors",))
+            from ray_tpu_torch.util import events
+
+            events.record("WARNING", "gcs", "actor dead",
+                          actor_id=actor_id)
+            await self.publish("ACTOR", {
+                "actor_id": actor_id, "state": ACTOR_DEAD,
+                "reason": payload.get("reason", "")})
+        elif event == "orphaned":
+            # The plane found no feasible node and handed the actor back
+            # for good (its record is gone; the mirror keeps the restart
+            # count). Python's scheduler takes over with its retry loop.
+            a.pop("native", None)
+            supervised_task(self._schedule_actor(actor_id))
+
+    def _restore_kv_row(self, key_hex: str, blob: bytes) -> None:
+        """Restore one persisted kv row into the Python tables. The
+        decoded key type (str vs bytes) is preserved: a str-keyed row
+        written by the native service must answer a str-keyed KVGet
+        after a fallback restart (the live tables keep the two distinct,
+        exactly like the native service's raw-encoding identity)."""
+        ns, k = rpc.unpack(bytes.fromhex(key_hex))
+        self.kv[ns][k] = rpc.unpack(blob)
+        self._row_hashes[("kv", key_hex)] = hash(blob)
+        self._row_sizes[("kv", key_hex)] = len(blob)
+
     async def stop(self):
+        self._native_svc = None  # server stop destroys the service stack
+        self._actor_plane = None
         for pump in list(self._fanout_pumps.values()):
             pump.close()
         self._fanout_pumps.clear()
         if self._health_task:
             self._health_task.cancel()
+        if getattr(self, "_persist_task", None):
+            self._persist_task.cancel()
         for t in self._aux_tasks:
             t.cancel()
         self._aux_tasks = []
+        # Server (and its pump loop thread, which may be running native
+        # KV write-throughs) must be fully stopped BEFORE the store is
+        # flushed and closed.
         await self._server.stop()
+        if self._store is not None:
+            # Flush acknowledged mutations from the last <0.5s window,
+            # then compact so restart replays a snapshot, not a long WAL.
+            tables = set()
+            try:
+                if self._dirty:
+                    tables, self._dirty = self._dirty, set()
+                    self._flush_rows(self._table_rows(only=tables), tables)
+                self._store.compact()
+            except Exception:
+                self.mark_dirty(tables)
+                logger.exception("final GCS persistence flush failed")
+            self._store.close()
+
+    # ---------- persistence ----------
+    # Tables persist as (namespace, key) -> msgpack'd row in the native
+    # WAL store (csrc/gcs_store.cc — the reference's gcs_table_storage /
+    # store_client role). Flushes are row-INCREMENTAL: rows are packed
+    # and hash-diffed against the last flush, so disk writes are O(rows
+    # changed), not O(cluster state), and a restart replays snapshot +
+    # WAL. Store keys are hex (binary-safe for user internal_kv keys).
+
+    _ALL_TABLES = ("kv", "actors", "named_actors", "jobs",
+                   "placement_groups", "nodes")
+
+    def mark_dirty(self, tables=None):
+        self._dirty.update(tables if tables is not None else
+                           self._ALL_TABLES)
+
+    def _touch(self, table: str, key) -> None:
+        """Record one mutated row for pre-reply write-through. Call
+        AFTER the in-memory mutation, with the live-table key:
+        kv=(ns, key_bytes), actors/jobs/placement_groups=str id,
+        named_actors=(name, namespace), nodes=node_id."""
+        if self._store is not None:
+            self._touched.append((table, key))
+
+    def _pack_row(self, table: str, key):
+        """(store_key_hex, row_bytes | None) for one live-table row —
+        None when the key is gone (row delete). Mirrors _table_rows."""
+        if table == "kv":
+            ns, k = key
+            v = self.kv.get(ns, {}).get(k)
+            return rpc.pack([ns, k]).hex(), (None if v is None
+                                             else rpc.pack(v))
+        if table == "actors":
+            a = self.actors.get(key)
+            if a is not None:
+                a = dict(a)
+                if isinstance(a.get("dead_worker_ids"), set):
+                    a["dead_worker_ids"] = sorted(a["dead_worker_ids"])
+            return key.encode().hex(), None if a is None else rpc.pack(a)
+        if table == "named_actors":
+            v = self.named_actors.get(key)
+            return (rpc.pack(list(key)).hex(),
+                    None if v is None else rpc.pack(v))
+        if table == "jobs":
+            j = self.jobs.get(key)
+            return key.encode().hex(), None if j is None else rpc.pack(j)
+        if table == "placement_groups":
+            pg = self.placement_groups.get(key)
+            return key.encode().hex(), None if pg is None else rpc.pack(pg)
+        if table == "nodes":
+            n = self.nodes.get(key)
+            return (key.encode().hex(),
+                    None if n is None else rpc.pack(n.to_wire()))
+        raise ValueError(f"unknown persistence table {table!r}")
+
+    def _persist_touched(self, touched: list) -> None:
+        """Write touched rows through the WAL synchronously (before the
+        RPC reply). Failures fall back to the debounced flush via
+        mark_dirty."""
+        with self._flush_lock:
+            for table, key in touched:
+                try:
+                    key_hex, blob = self._pack_row(table, key)
+                except Exception:
+                    logger.exception("write-through pack failed (%s)", table)
+                    self.mark_dirty((table,))
+                    continue
+                if blob is None:
+                    if (table, key_hex) in self._row_hashes:
+                        if self._store.delete(table, key_hex):
+                            del self._row_hashes[(table, key_hex)]
+                            self._persisted_bytes -= \
+                                self._row_sizes.pop((table, key_hex), 0)
+                            self._needs_sync = True
+                        else:
+                            self.mark_dirty((table,))
+                    continue
+                h = hash(blob)
+                if self._row_hashes.get((table, key_hex)) == h:
+                    continue  # unchanged (idempotent re-touch)
+                if self._store.put(table, key_hex, blob):
+                    self._row_hashes[(table, key_hex)] = h
+                    self._persisted_bytes += (
+                        len(blob) - self._row_sizes.get((table, key_hex), 0))
+                    self._row_sizes[(table, key_hex)] = len(blob)
+                    self._needs_sync = True
+                else:
+                    self._row_hashes.pop((table, key_hex), None)
+                    self.mark_dirty((table,))
+
+    def _table_rows(self, only=None) -> dict:
+        """Pack live tables into {(namespace, hex_key): row_bytes}.
+        `only` limits packing to the named (dirty) tables — a KV-heavy
+        cluster must not re-serialize every kv row because one actor
+        changed state."""
+        want = set(only) if only is not None else set(self._ALL_TABLES)
+        rows: dict[tuple[str, str], bytes] = {}
+        if "kv" in want:
+            for ns, table in self.kv.items():
+                for k, v in table.items():
+                    rows[("kv", rpc.pack([ns, k]).hex())] = rpc.pack(v)
+        if "actors" in want:
+            for aid, a in self.actors.items():
+                a = dict(a)
+                if isinstance(a.get("dead_worker_ids"), set):
+                    a["dead_worker_ids"] = sorted(a["dead_worker_ids"])
+                rows[("actors", aid.encode().hex())] = rpc.pack(a)
+        if "named_actors" in want:
+            for k, v in self.named_actors.items():
+                rows[("named_actors", rpc.pack(list(k)).hex())] = rpc.pack(v)
+        if "jobs" in want:
+            for jid, j in self.jobs.items():
+                rows[("jobs", jid.encode().hex())] = rpc.pack(j)
+        if "placement_groups" in want:
+            for pgid, pg in self.placement_groups.items():
+                rows[("placement_groups", pgid.encode().hex())] = rpc.pack(pg)
+        if "nodes" in want:
+            for n in self.nodes.values():
+                rows[("nodes", n.node_id.encode().hex())] = \
+                    rpc.pack(n.to_wire())
+        return rows
+
+    def _flush_rows(self, rows: dict, tables=None) -> int:
+        """Write changed rows through to the native store; delete
+        vanished rows (sweep limited to the flushed `tables` — rows of
+        unflushed tables are absent from `rows` but not deleted).
+        Returns the number of rows touched. Serialized by a lock:
+        stop()'s final flush may overlap a cancelled-but-still-running
+        to_thread flush, and the two must not race the hash map. A
+        failed WAL append (disk full) leaves the row unhashed so a
+        later flush retries it."""
+        swept = set(tables) if tables is not None else set(self._ALL_TABLES)
+        with self._flush_lock:
+            touched = 0
+            failed = 0
+            for (ns, key), blob in rows.items():
+                h = hash(blob)
+                if self._row_hashes.get((ns, key)) != h:
+                    if self._store.put(ns, key, blob):
+                        self._row_hashes[(ns, key)] = h
+                        self._persisted_bytes += (
+                            len(blob) - self._row_sizes.get((ns, key), 0))
+                        self._row_sizes[(ns, key)] = len(blob)
+                    else:
+                        self._row_hashes.pop((ns, key), None)
+                        failed += 1
+                        self.mark_dirty((ns,))  # retry next window
+                    touched += 1
+            for (ns, key) in list(self._row_hashes):
+                if ns in swept and (ns, key) not in rows:
+                    if self._store.delete(ns, key):
+                        del self._row_hashes[(ns, key)]
+                        self._persisted_bytes -= \
+                            self._row_sizes.pop((ns, key), 0)
+                    else:
+                        failed += 1
+                        self.mark_dirty((ns,))
+                    touched += 1
+            if failed:
+                logger.error("GCS persistence: %d row writes failed "
+                             "(disk full?); will retry", failed)
+            return touched
+
+    def _load_state(self):
+        """Restore the PRIORITY PREFIX of persisted state synchronously
+        — the bounded set a restarted control plane needs to answer and
+        grant correctly from its first frame — and stage everything
+        else on `_recovery_backlog` for the background recovery stream
+        (recovery is a stream, not a snapshot).
+
+        Prefix, in priority order: every node row with live nodes
+        first (placement and heartbeat replies need the full width
+        view — bounded by cluster size, not workload), then in-flight
+        actor creations (PENDING/RESTARTING rows, whose re-kicks must
+        not be lost). The rest — the workload-proportional bulk:
+        settled actors, named-actor index, jobs, placement groups —
+        rehydrates incrementally in _recovery_stream; reads that race
+        the stream fault their rows in via _recovery_faultin."""
+        if self._store.num_rows() == 0:
+            # A file AT the bare prefix is the pre-WAL single-snapshot
+            # format (replaced this round); it is not migrated — surface
+            # that instead of silently starting fresh over it.
+            if os.path.exists(self.persistence_path):
+                logger.warning(
+                    "found legacy single-file GCS snapshot at %s; the WAL "
+                    "store does not migrate it — starting fresh",
+                    self.persistence_path)
+            return  # first start of this session
+        t0 = time.monotonic()
+        native_kv = self._native_kv_planned()
+        for key_hex, blob in self._store.scan("kv"):
+            if native_kv:
+                # The native service will own these rows (it re-writes
+                # them through the WAL itself); keeping them out of
+                # _row_hashes keeps the Python flush sweep away from
+                # the kv namespace.
+                self._pending_native_kv.append((key_hex, blob))
+            else:
+                self._restore_kv_row(key_hex, blob)
+            self._persisted_bytes += len(blob)
+        # Priority 1: the node table, live rungs first.
+        node_rows = [(key_hex, blob, rpc.unpack(blob))
+                     for key_hex, blob in self._store.scan("nodes")]
+        node_rows.sort(key=lambda r: 0 if r[2].get("state", "ALIVE") in (
+            NODE_ALIVE, NODE_SUSPECT, NODE_DRAINING) else 1)
+        for key_hex, blob, w in node_rows:
+            info = NodeInfo(
+                node_id=w["node_id"], host=w["host"],
+                raylet_port=w["raylet_port"],
+                total_resources=w["total_resources"],
+                available_resources=w["available_resources"],
+                labels=w.get("labels") or {}, store_path=w.get("store_path", ""),
+                is_head=w.get("is_head", False),
+                transfer_port=w.get("transfer_port", 0),
+                state=w.get("state", "ALIVE"),
+                drain_reason=w.get("drain_reason", ""),
+                drain_deadline_s=w.get("drain_deadline_s", 0.0),
+                drain_stats=w.get("drain_stats") or {})
+            # Nodes come back when their raylet re-registers; stale-alive
+            # entries would mislead placement.
+            info.alive = False
+            self.nodes[info.node_id] = info
+            self._row_hashes[("nodes", key_hex)] = hash(blob)
+            self._row_sizes[("nodes", key_hex)] = len(blob)
+            self._persisted_bytes += len(blob)
+        self._restored_unregistered = {
+            nid for nid, n in self.nodes.items() if not n.alive}
+        # Priority 2: in-flight actor creations. Re-kick scheduling that
+        # died with the previous process. Native-owned actors are
+        # deferred: the plane's rehydration (restore_actor + re-drive on
+        # node re-registration) replays them with at-most-once
+        # semantics; a Python re-kick here would race it and fork the
+        # creation. If the plane then fails to install,
+        # _rekick_deferred_native_actors hands them back.
+        native_planned = self._native_actor_planned()
+        backlog: deque = deque()
+        prefix_rows = len(node_rows)
+        for key_hex, blob in self._store.scan("actors"):
+            a = rpc.unpack(blob)
+            a["dead_worker_ids"] = set(a.get("dead_worker_ids", ()))
+            if a["state"] not in (ACTOR_PENDING, ACTOR_RESTARTING):
+                backlog.append(("actors", key_hex, blob, a))
+                continue
+            aid = bytes.fromhex(key_hex).decode()
+            self.actors[aid] = a
+            self._row_hashes[("actors", key_hex)] = hash(blob)
+            self._row_sizes[("actors", key_hex)] = len(blob)
+            self._persisted_bytes += len(blob)
+            prefix_rows += 1
+            if native_planned and a.get("native"):
+                self._native_rekick_deferred.append(aid)
+                continue
+            asyncio.get_event_loop().call_later(
+                1.0, lambda aid=aid: supervised_task(
+                    self._schedule_actor(aid)))
+        # The rest rides the stream (PG_PENDING re-kicks fire as their
+        # rows apply).
+        for table in ("named_actors", "jobs", "placement_groups"):
+            for key_hex, blob in self._store.scan(table):
+                backlog.append((table, key_hex, blob, None))
+        self._recovery_backlog = backlog
+        self.recovering = bool(backlog)
+        self._recovery_stats["prefix_rows"] = prefix_rows
+        self._recovery_stats["prefix_ms"] = (time.monotonic() - t0) * 1e3
+        logger.info("GCS recovery prefix loaded from %s in %.1fms "
+                    "(%d nodes, %d pending actors, %d kv ns; %d rows "
+                    "streaming)", self.persistence_path,
+                    self._recovery_stats["prefix_ms"], len(self.nodes),
+                    len(self.actors), len(self.kv), len(backlog))
+
+    def _apply_recovery_row(self, table, key_hex, blob, row) -> None:
+        """Apply one backlog row to the live tables. A key the running
+        workload already (re)created wins over the snapshot — the
+        stream only fills gaps, it never rolls live state back."""
+        if table == "actors":
+            aid = bytes.fromhex(key_hex).decode()
+            if aid in self.actors:
+                return
+            self.actors[aid] = row
+        elif table == "named_actors":
+            key = tuple(rpc.unpack(bytes.fromhex(key_hex)))
+            if key in self.named_actors:
+                return
+            self.named_actors[key] = rpc.unpack(blob)
+        elif table == "jobs":
+            jid = bytes.fromhex(key_hex).decode()
+            if jid in self.jobs:
+                return
+            self.jobs[jid] = rpc.unpack(blob)
+        elif table == "placement_groups":
+            pid = bytes.fromhex(key_hex).decode()
+            if pid in self.placement_groups:
+                return
+            pg = rpc.unpack(blob)
+            self.placement_groups[pid] = pg
+            if pg["state"] == PG_PENDING:
+                asyncio.get_event_loop().call_later(
+                    1.0, lambda p=pid: supervised_task(
+                        self._schedule_pg(p)))
+        self._row_hashes[(table, key_hex)] = hash(blob)
+        self._row_sizes[(table, key_hex)] = len(blob)
+        self._persisted_bytes += len(blob)
+
+    async def _recovery_stream(self):
+        """Drain the recovery backlog incrementally, yielding to the
+        loop between chunks so answering and granting never wait on the
+        full-table replay. Flips `recovering` off when dry."""
+        t0 = time.monotonic()
+        applied = 0
+        try:
+            while self._recovery_backlog:
+                self._apply_recovery_row(*self._recovery_backlog.popleft())
+                applied += 1
+                if applied % 256 == 0:
+                    await asyncio.sleep(0)
+        finally:
+            self.recovering = False
+            self._recovery_stats["streamed_rows"] += applied
+            self._recovery_stats["stream_ms"] = \
+                (time.monotonic() - t0) * 1e3
+            logger.info("GCS recovery stream drained (%d rows in %.1fms)",
+                        applied, self._recovery_stats["stream_ms"])
+
+    def _recovery_faultin(self, pred) -> None:
+        """Synchronously apply (and drop) backlog rows matching pred —
+        the read-through for lookups racing the recovery stream. O(n)
+        over the remaining backlog, only while `recovering`."""
+        if not self.recovering or not self._recovery_backlog:
+            return
+        keep: deque = deque()
+        faulted = 0
+        while self._recovery_backlog:
+            item = self._recovery_backlog.popleft()
+            if pred(item):
+                self._apply_recovery_row(*item)
+                faulted += 1
+            else:
+                keep.append(item)
+        self._recovery_backlog = keep
+        self._recovery_stats["streamed_rows"] += faulted
+
+    async def _reap_restored_nodes(self):
+        """Nodes restored from the snapshot that never re-registered are
+        dead: fail over their actors (restart elsewhere or mark DEAD) the
+        same way a live death would."""
+        grace = max(10.0, self.config.health_check_period_s
+                    * self.config.num_heartbeats_timeout * 3)
+        await asyncio.sleep(grace)
+        for nid in list(getattr(self, "_restored_unregistered", ())):
+            node = self.nodes.get(nid)
+            if node is None or node.alive:
+                continue
+            logger.warning("restored node %s never re-registered; failing "
+                           "over its actors", nid[:8])
+            for actor_id, a in list(self.actors.items()):
+                if a.get("node_id") == nid and a["state"] in (
+                        ACTOR_ALIVE, ACTOR_PENDING, ACTOR_RESTARTING):
+                    await self._on_actor_worker_death(
+                        actor_id, f"node {nid[:8]} lost across GCS restart")
+            self.mark_dirty(("actors", "named_actors"))
+
+    async def _persist_loop(self):
+        while True:
+            await asyncio.sleep(0.5)
+            if self._native_svc is not None:
+                # Native KV mutations append to the WAL on the pump
+                # thread; fold them into the same batched-fdatasync
+                # window, and surface disk-full failures.
+                _, appends, fails = self._native_svc.counters()
+                if appends != self._native_appends_seen:
+                    self._native_appends_seen = appends
+                    self._needs_sync = True
+                if fails != self._native_walfails_seen:
+                    self._native_walfails_seen = fails
+                    logger.error(
+                        "native GCS service: %d WAL appends failed "
+                        "(disk full?)", fails)
+            if self._needs_sync:
+                # Batched fdatasync: write-through already made every
+                # acknowledged mutation process-crash durable; this
+                # bounds OS-crash exposure to one window (redis
+                # appendfsync-everysec semantics).
+                self._needs_sync = False
+                await asyncio.to_thread(self._store.sync)
+            if not self._dirty:
+                # Compaction must not be gated on Python-side dirtiness:
+                # a kv-churn workload handled entirely by the native
+                # service never dirties a Python table, yet its WAL
+                # appends still need folding into the snapshot.
+                if self._store.wal_bytes() > max(
+                        1 << 20, 4 * self._persisted_bytes):
+                    await asyncio.to_thread(self._store.compact)
+                continue
+            tables, self._dirty = self._dirty, set()
+            try:
+                # Pack DIRTY tables' rows ON the loop (consistent view —
+                # same role the old deepcopy played, at a cost bounded by
+                # what actually changed); the diff + WAL writes run
+                # off-loop (the store is thread-safe).
+                rows = self._table_rows(only=tables)
+                await asyncio.to_thread(self._flush_rows, rows, tables)
+                # Compact once the WAL outgrows the TOTAL persisted
+                # state (not this flush's dirty subset — that would
+                # trigger full-snapshot rewrites on every small change).
+                if self._store.wal_bytes() > max(
+                        1 << 20, 4 * self._persisted_bytes):
+                    await asyncio.to_thread(self._store.compact)
+            except Exception:
+                # Re-dirty the swapped tables: with per-table dirtying,
+                # an unrelated later mutation would no longer re-flush
+                # the rows this failed window carried.
+                self.mark_dirty(tables)
+                logger.exception("GCS persistence write failed")
 
     # ---------- pubsub ----------
 
@@ -284,8 +1170,35 @@ class GcsServer:
         await self.publish(payload["channel"], payload["message"])
         return {"ok": True}
 
+    def _native_kv_planned(self) -> bool:
+        from ray_tpu_torch._private.fast_rpc import FastRpcServer
+
+        if not isinstance(self._server, FastRpcServer):
+            return False
+        from ray_tpu_torch._private import native_gcs_service
+
+        return native_gcs_service.available()
+
+    def _native_actor_planned(self) -> bool:
+        from ray_tpu_torch._private.fast_rpc import FastRpcServer
+
+        if not isinstance(self._server, FastRpcServer):
+            return False
+        from ray_tpu_torch._private import native_actor_plane
+
+        return native_actor_plane.available()
+
     async def publish(self, channel: str, message):
-        # Enqueue-and-return into per-subscriber
+        if self._native_svc is not None:
+            # One ctypes call, N native sends — and no packing at all
+            # when nobody subscribed (the common case for LOGS).
+            if self._native_svc.sub_count(channel):
+                self._native_svc.fanout(channel, rpc.pack(
+                    [rpc.MSG_NOTIFY, 0, "Publish",
+                     {"channel": channel, "message": message}]))
+                self._fanout_stats["native_batches"] += 1
+            return
+        # Python fallback: enqueue-and-return into per-subscriber
         # supervised sender pumps. publish() itself never awaits a
         # subscriber socket — a stalled conn backs up only its own
         # bounded queue (coalesced latest-wins per entity on state
@@ -337,6 +1250,14 @@ class GcsServer:
         )
         self.nodes[info.node_id] = info
         self.node_conns[info.node_id] = conn
+        self._plane_node_up(info.node_id, conn)
+        self._touch("nodes", info.node_id)
+        if hasattr(self, "_restored_unregistered"):
+            self._restored_unregistered.discard(info.node_id)
+        if self.native_sched is not None:
+            self.native_sched.update_node(
+                info.node_id, total=info.total_resources,
+                available=info.available_resources, labels=info.labels)
         conn.on_close(lambda: supervised_task(
             self._on_node_conn_lost(info.node_id, conn)))
         await self.publish("NODE", {"event": "alive", "node": info.to_wire()})
@@ -373,6 +1294,17 @@ class GcsServer:
             events.record("INFO", "gcs", "suspect node reconnected",
                           node_id=node.node_id)
         self.node_conns[node.node_id] = conn
+        self._plane_node_up(node.node_id, conn)
+        if node.state != NODE_ALIVE:
+            # node_up resets the plane's rung to ALIVE; restore the real
+            # one (e.g. a DRAINING node that flapped stays unpickable).
+            self._plane_node_state_notify(node.node_id, node.state)
+        self._touch("nodes", node.node_id)
+        if self.native_sched is not None:
+            self.native_sched.update_node(
+                node.node_id, total=node.total_resources,
+                available=node.available_resources, labels=node.labels,
+                alive=node.state == NODE_ALIVE)
         conn.on_close(lambda: supervised_task(
             self._on_node_conn_lost(node.node_id, conn)))
         await self.publish("NODE", {
@@ -380,6 +1312,27 @@ class GcsServer:
             "node": node.to_wire()})
         return {"ok": True, "config": self.config.to_json(),
                 "reconnected": True}
+
+    def _plane_node_up(self, node_id: str, conn) -> None:
+        """Tell the native actor plane a raylet conn (re)bound, so it
+        can (re)send any in-flight CreateActors over the fresh socket
+        with their ORIGINAL (sid, rseq) — the raylet's reply cache
+        makes the replay at-most-once."""
+        if self._actor_plane is not None and hasattr(conn, "_conn_id"):
+            try:
+                self._actor_plane.node_up(node_id, conn._conn_id)
+            except Exception:
+                logger.exception("native actor plane node_up failed")
+
+    def _plane_node_state_notify(self, node_id: str, state: str) -> None:
+        """Mirror a death/drain-ladder rung into the native plane so
+        native picks and re-drives honor SUSPECT/DRAINING exclusions."""
+        if self._actor_plane is not None:
+            try:
+                self._actor_plane.node_state(node_id,
+                                             _plane_node_state(state))
+            except Exception:
+                logger.exception("native actor plane node_state failed")
 
     async def _call_node(self, node_id: str, method: str, payload=None, *,
                          timeout: float | None = None,
@@ -476,6 +1429,12 @@ class GcsServer:
                               "re-register to reattach"}
         node.last_heartbeat = time.monotonic()
         node.available_resources = payload.get("available_resources", node.available_resources)
+        if self.native_sched is not None:
+            # A draining node keeps heartbeating but must stay dead in
+            # the placement mirror (update_node defaults alive=True).
+            self.native_sched.update_node(
+                node.node_id, available=node.available_resources,
+                alive=node.state == NODE_ALIVE)
         self.pending_demand[node.node_id] = payload.get("pending_demand", [])
         # Reply piggy-backs the cluster resource view so raylets can make
         # spillback decisions (replaces the reference's ray_syncer gossip,
@@ -492,7 +1451,7 @@ class GcsServer:
                 "labels": n.labels,
                 "transfer_port": n.transfer_port,
                 # Same-host peers pull arena-to-arena through shm (one
-                # memcpy, no sockets) — see raylet._local_peer_copy.
+                # memcpy, no sockets) — see raylet._native_pull.
                 "store_path": n.store_path,
                 # Raylets must not spill leases onto a DRAINING peer
                 # (its object plane stays reachable for pulls).
@@ -545,9 +1504,13 @@ class GcsServer:
         node.drain_reason = reason
         node.drain_deadline_s = deadline_s
         node.drain_stats.setdefault("started_at", time.time())
+        self._touch("nodes", node_id)
+        self._plane_node_state_notify(node_id, NODE_DRAINING)
         # Placement mirror: stop picking the node for new actors/PGs
         # (the data plane keeps treating it as alive — objects are still
         # being pulled off it).
+        if self.native_sched is not None:
+            self.native_sched.update_node(node_id, available={}, alive=False)
         def rollback():
             # The raylet never accepted the drain: a node left DRAINING
             # here would be wedged out of placement forever (no
@@ -556,6 +1519,12 @@ class GcsServer:
                 return
             node.state = NODE_ALIVE
             node.drain_reason = ""
+            self._touch("nodes", node_id)
+            self._plane_node_state_notify(node_id, NODE_ALIVE)
+            if self.native_sched is not None:
+                self.native_sched.update_node(
+                    node_id, available=node.available_resources,
+                    alive=True)
 
         try:
             resp = await self._call_node(
@@ -615,6 +1584,8 @@ class GcsServer:
             a["migrations"] = a.get("migrations", 0) + 1
             a["state"] = ACTOR_RESTARTING
             a["address"] = None
+            self._touch("actors", actor_id)
+            self.mark_dirty(("actors",))
             await self.publish("ACTOR", {
                 "actor_id": actor_id, "state": ACTOR_RESTARTING,
                 "reason": f"migrating off draining node ({reason})"})
@@ -629,6 +1600,7 @@ class GcsServer:
         if node is not None and migrated:
             node.drain_stats["migrated_actors"] = \
                 node.drain_stats.get("migrated_actors", 0) + migrated
+            self._touch("nodes", node_id)
             logger.info("migrated %d actor(s) off draining node %s",
                         migrated, node_id[:8])
 
@@ -652,10 +1624,12 @@ class GcsServer:
             return {"ok": False, "error": f"unknown node {node_id[:12]}"}
         self._note_relocations(payload.get("relocations") or {})
         node.state = NODE_DRAINED
+        self._plane_node_state_notify(node_id, NODE_DRAINED)
         stats = dict(payload.get("stats") or {})
         # Merge: migrated_actors is GCS-side accounting, the rest is the
         # raylet's evacuation report.
         node.drain_stats.update(stats)
+        self._touch("nodes", node_id)
         from ray_tpu_torch.util import events
 
         events.record("INFO", "gcs", "node drained", node_id=node_id,
@@ -710,7 +1684,11 @@ class GcsServer:
         node.suspect_since_s = time.time()
         # The plane parks (not forks) any in-flight create aimed at a
         # SUSPECT node: re-driven on reconnection, failed over on DEAD.
+        self._plane_node_state_notify(node_id, NODE_SUSPECT)
         self.node_conns.pop(node_id, None)
+        if self.native_sched is not None:
+            self.native_sched.update_node(node_id, available={}, alive=False)
+        self._touch("nodes", node_id)
         from ray_tpu_torch.util import events
 
         grace = (self.config.health_check_period_s
@@ -731,9 +1709,22 @@ class GcsServer:
         node.alive = False
         node.state = NODE_DEAD if not drained else NODE_DRAINED
         node.available_resources = {}
+        if self._actor_plane is not None:
+            # The plane fails over its own in-flight creates (restart
+            # bookkeeping + reschedule, narrated via inject events) —
+            # BEFORE the loop below, whose skip of native PENDING actors
+            # relies on the plane owning them.
+            try:
+                self._actor_plane.node_down(node_id)
+            except Exception:
+                logger.exception("native actor plane node_down failed")
         self.node_conns.pop(node_id, None)
         self._node_call_sessions.pop(node_id, None)
+        if self.native_sched is not None:
+            self.native_sched.update_node(node_id, available={}, alive=False)
         self.pending_demand.pop(node_id, None)
+        self._touch("nodes", node_id)
+        self.mark_dirty(("nodes", "actors", "placement_groups"))
         from ray_tpu_torch.util import events
 
         if drained:
@@ -755,6 +1746,12 @@ class GcsServer:
         # left goes through the normal path with a drain-flavored cause.
         for actor_id, a in list(self.actors.items()):
             if a.get("node_id") == node_id and a["state"] in (ACTOR_ALIVE, ACTOR_PENDING):
+                if a.get("native") and a["state"] == ACTOR_PENDING:
+                    # In-flight native create: the node_down call above
+                    # already failed it over inside the plane (restart
+                    # consumed there); running the Python path too would
+                    # double-count the restart.
+                    continue
                 await self._on_actor_worker_death(
                     actor_id,
                     f"node {node_id[:8]} drained and removed" if drained
@@ -795,6 +1792,7 @@ class GcsServer:
         if not payload.get("overwrite", True) and key in table:
             return {"added": False}
         table[key] = payload["value"]
+        self._touch("kv", (ns, key))
         return {"added": True}
 
     async def handle_kv_get(self, conn, payload):
@@ -804,6 +1802,8 @@ class GcsServer:
     async def handle_kv_del(self, conn, payload):
         require_fields(payload, "key", method="handle_kv_del")
         existed = self.kv[payload.get("ns", "")].pop(payload["key"], None) is not None
+        if existed:
+            self._touch("kv", (payload.get("ns", ""), payload["key"]))
         return {"deleted": existed}
 
     async def handle_kv_keys(self, conn, payload):
@@ -835,6 +1835,7 @@ class GcsServer:
                     return {"ok": False,
                             "reason": f"actor name {name!r} already taken in {namespace!r}"}
             self.named_actors[key] = actor_id
+            self._touch("named_actors", key)
         self.actors[actor_id] = {
             "actor_id": actor_id,
             "job_id": payload.get("job_id", ""),
@@ -855,6 +1856,7 @@ class GcsServer:
             "placement_group": payload.get("placement_group", ""),
             "pg_bundle_index": payload.get("pg_bundle_index", -1),
         }
+        self._touch("actors", actor_id)
         self._record_task_event(
             self._creation_task_id(actor_id, spec), payload.get("class_name", ""),
             "CREATE_REGISTERED", job_id=payload.get("job_id", ""),
@@ -867,7 +1869,8 @@ class GcsServer:
         """Node selection for actors/PGs at the GCS (raylets do their own
         hybrid policy for tasks). Mirrors the reference's GcsActorScheduler
         falling back onto raylet scheduling."""
-        # DRAINING/DRAINED nodes take no new placements.
+        # DRAINING/DRAINED nodes take no new placements (their native-
+        # scheduler mirror is already marked dead at drain start).
         alive = [n for n in self.nodes.values()
                  if n.alive and n.state == NODE_ALIVE]
         if strategy and strategy[0] == "node_affinity":
@@ -889,6 +1892,10 @@ class GcsServer:
                 if node and node.alive and resources_fit(b["available"], resources):
                     return b["node_id"]
             return None
+        if self.native_sched is not None:
+            strat = "spread" if (strategy and strategy[0] == "spread") else "pack"
+            return self.native_sched.pick_node(resources, strat,
+                                               fallback_total=True)
         candidates = [n for n in alive if resources_fit(n.available_resources, resources)]
         if not candidates:
             # Fall back to nodes that could EVER fit (total resources) —
@@ -934,7 +1941,10 @@ class GcsServer:
         node = self.nodes.get(node_id)
         if node is not None:
             subtract_resources(node.available_resources, placement_demand)
+        if self.native_sched is not None:
+            self.native_sched.debit_node(node_id, placement_demand)
         a["node_id"] = node_id
+        self.mark_dirty(("actors",))
         self._record_task_event(
             self._creation_task_id(actor_id, a["spec"]), a["class_name"],
             "CREATE_SCHEDULED", job_id=a.get("job_id", ""),
@@ -978,6 +1988,7 @@ class GcsServer:
             return {"ok": False}
         a["state"] = ACTOR_ALIVE
         a["address"] = payload["address"]
+        self._touch("actors", payload["actor_id"])
         self._record_task_event(
             self._creation_task_id(payload["actor_id"], a["spec"]),
             a["class_name"], "CREATE_READY", job_id=a.get("job_id", ""),
@@ -1014,6 +2025,15 @@ class GcsServer:
         a = self.actors.get(actor_id)
         if a is None or a["state"] == ACTOR_DEAD:
             return
+        if a.pop("native", None) and self._actor_plane is not None:
+            # Python takes over this actor's lifecycle (post-create
+            # death, kill, node failure of an ALIVE actor): the plane
+            # must drop its record or a later node event would make it
+            # act on a ghost.
+            try:
+                self._actor_plane.actor_forget(actor_id)
+            except Exception:
+                logger.exception("native actor plane forget failed")
         can_restart = (not intended) and (
             a["max_restarts"] == -1 or a["restarts"] < a["max_restarts"])
         logger.info("actor %s worker died (%s), restart=%s (%d/%s)",
@@ -1023,14 +2043,19 @@ class GcsServer:
             a["restarts"] += 1
             a["state"] = ACTOR_RESTARTING
             a["address"] = None
+            self._touch("actors", actor_id)
+            self.mark_dirty(("actors",))
             await self.publish("ACTOR", {"actor_id": actor_id, "state": ACTOR_RESTARTING,
                                          "reason": reason})
             supervised_task(self._schedule_actor(actor_id))
         else:
             a["state"] = ACTOR_DEAD
+            self.mark_dirty(("actors", "named_actors"))
             a["address"] = None
             a["death_cause"] = reason
             self.named_actors.pop((a["namespace"], a["name"]), None)
+            self._touch("actors", actor_id)
+            self._touch("named_actors", (a["namespace"], a["name"]))
             from ray_tpu_torch.util import events
 
             events.record("WARNING", "gcs", "actor dead",
@@ -1040,6 +2065,10 @@ class GcsServer:
 
     async def handle_get_actor_info(self, conn, payload):
         require_fields(payload, "actor_id", method="handle_get_actor_info")
+        if self.recovering and payload["actor_id"] not in self.actors:
+            aid_hex = payload["actor_id"].encode().hex()
+            self._recovery_faultin(
+                lambda it: it[0] == "actors" and it[1] == aid_hex)
         a = self.actors.get(payload["actor_id"])
         if a is None:
             return {"found": False}
@@ -1050,6 +2079,15 @@ class GcsServer:
     async def handle_get_named_actor(self, conn, payload):
         require_fields(payload, "name", method="handle_get_named_actor")
         key = (payload.get("namespace") or "default", payload["name"])
+        if self.recovering and key not in self.named_actors:
+            # The name index and its target row may both still be on
+            # the stream: fault in the index, then the actor it names.
+            self._recovery_faultin(lambda it: it[0] == "named_actors")
+            target = self.named_actors.get(key)
+            if target is not None and target not in self.actors:
+                t_hex = target.encode().hex()
+                self._recovery_faultin(
+                    lambda it: it[0] == "actors" and it[1] == t_hex)
         actor_id = self.named_actors.get(key)
         if actor_id is None or actor_id not in self.actors:
             return {"found": False}
@@ -1059,6 +2097,8 @@ class GcsServer:
                 if isinstance(a["spec"], dict) else None}
 
     async def handle_list_actors(self, conn, payload):
+        if self.recovering:
+            self._recovery_faultin(lambda it: it[0] == "actors")
         return {"actors": [
             {k: a[k] for k in ("actor_id", "job_id", "name", "namespace", "class_name",
                                "state", "node_id", "restarts", "resources")}
@@ -1067,6 +2107,10 @@ class GcsServer:
     async def handle_kill_actor(self, conn, payload):
         require_fields(payload, "actor_id", method="handle_kill_actor")
         actor_id = payload["actor_id"]
+        if self.recovering and actor_id not in self.actors:
+            aid_hex = actor_id.encode().hex()
+            self._recovery_faultin(
+                lambda it: it[0] == "actors" and it[1] == aid_hex)
         a = self.actors.get(actor_id)
         if a is None:
             return {"ok": False}
@@ -1117,14 +2161,20 @@ class GcsServer:
             "status": "RUNNING",
             "entrypoint": payload.get("entrypoint", ""),
         }
+        self._touch("jobs", payload["job_id"])
         return {"ok": True}
 
     async def handle_finish_job(self, conn, payload):
         require_fields(payload, "job_id", method="handle_finish_job")
+        if self.recovering and payload["job_id"] not in self.jobs:
+            jid_hex = payload["job_id"].encode().hex()
+            self._recovery_faultin(
+                lambda it: it[0] == "jobs" and it[1] == jid_hex)
         job = self.jobs.get(payload["job_id"])
         if job:
             job["status"] = payload.get("status", "SUCCEEDED")
             job["end_time"] = time.time()
+            self._touch("jobs", payload["job_id"])
         # Raylets release the job's runtime-env references on this event
         # (reference: runtime-env URI GC when the last referencing job
         # exits, runtime_env ARCHITECTURE.md).
@@ -1133,6 +2183,8 @@ class GcsServer:
         return {"ok": True}
 
     async def handle_list_jobs(self, conn, payload):
+        if self.recovering:
+            self._recovery_faultin(lambda it: it[0] == "jobs")
         return {"jobs": list(self.jobs.values())}
 
     # ---------- placement groups ----------
@@ -1150,6 +2202,7 @@ class GcsServer:
             "state": PG_PENDING,
             "job_id": payload.get("job_id", ""),
         }
+        self._touch("placement_groups", pg_id)
         supervised_task(self._schedule_pg(pg_id))
         return {"ok": True}
 
@@ -1206,12 +2259,19 @@ class GcsServer:
             pg["bundles"][idx]["node_id"] = node_id
             pg["bundles"][idx]["available"] = dict(pg["bundles"][idx]["resources"])
         pg["state"] = PG_CREATED
+        self.mark_dirty(("placement_groups",))
         await self.publish("PG", {"pg_id": pg_id, "state": PG_CREATED,
                                   "bundles": [(b["node_id"]) for b in pg["bundles"]]})
 
     def _pack_bundles(self, pg) -> list[tuple[int, str]] | None:
         """Returns [(bundle_index, node_id)] or None if infeasible now."""
         strategy = pg["strategy"]
+        if self.native_sched is not None:
+            got = self.native_sched.schedule_bundles(
+                [b["resources"] for b in pg["bundles"]], strategy)
+            if got is None:
+                return None
+            return list(enumerate(got))
         alive = [n for n in self.nodes.values()
                  if n.alive and n.state == NODE_ALIVE]
         if strategy == "STRICT_ICI":
@@ -1261,8 +2321,15 @@ class GcsServer:
                 return None
         return placement
 
+    def _faultin_pg(self, pg_id: str) -> None:
+        if self.recovering and pg_id not in self.placement_groups:
+            pid_hex = pg_id.encode().hex()
+            self._recovery_faultin(
+                lambda it: it[0] == "placement_groups" and it[1] == pid_hex)
+
     async def handle_remove_pg(self, conn, payload):
         require_fields(payload, "pg_id", method="handle_remove_pg")
+        self._faultin_pg(payload["pg_id"])
         pg = self.placement_groups.get(payload["pg_id"])
         if pg is None:
             return {"ok": False}
@@ -1280,6 +2347,7 @@ class GcsServer:
                                    "node %s failed", pg["pg_id"][:8], idx,
                                    node_id[:8], exc_info=True)
         pg["state"] = PG_REMOVED
+        self._touch("placement_groups", payload["pg_id"])
         # Waiters on ready() promises fail instead of hanging forever.
         await self.publish("PG", {"pg_id": payload["pg_id"],
                                   "state": PG_REMOVED})
@@ -1287,6 +2355,7 @@ class GcsServer:
 
     async def handle_get_pg(self, conn, payload):
         require_fields(payload, "pg_id", method="handle_get_pg")
+        self._faultin_pg(payload["pg_id"])
         pg = self.placement_groups.get(payload["pg_id"])
         if pg is None:
             return {"found": False}
@@ -1296,6 +2365,8 @@ class GcsServer:
                 "strategy": pg["strategy"], "name": pg["name"]}
 
     async def handle_list_pgs(self, conn, payload):
+        if self.recovering:
+            self._recovery_faultin(lambda it: it[0] == "placement_groups")
         return {"placement_groups": [
             {"pg_id": pg["pg_id"], "name": pg["name"], "state": pg["state"],
              "strategy": pg["strategy"],
@@ -1354,18 +2425,135 @@ class GcsServer:
             "suspect_nodes": len([n for n in self.nodes.values()
                                   if n.state == NODE_SUSPECT]),
             "rpc_sessions": rpc.session_stats(),
+            "native_control": self._native_control_stats(),
             "fanout": dict(self._fanout_stats),
             # Top-level packages this daemon has loaded (what a port
             # process may not load — jax, ray_tpu, msgpack — is checked
             # against this).
             "loaded_packages": loaded_packages(),
+            "recovering": self.recovering,
+            "recovery": dict(self._recovery_stats,
+                             backlog_rows=len(self._recovery_backlog)),
         }
 
+    def _native_control_stats(self):
+        if self._actor_plane is None:
+            return None
+        plane = self._actor_plane
+        handled, fallthrough, deduped = plane.counters()
+        methods = {}
+        for m in ("RegisterActor", "ActorReady"):
+            mh, mr, md = plane.method_stats(m)
+            methods[m] = {"handled": mh, "routed": mr, "degraded": md}
+        return {
+            "handled_total": handled,
+            # Frames the plane looked at but routed to Python (complex
+            # shapes, transient no-node states, unknown actors).
+            "native_fallthrough_total": fallthrough,
+            "deduped_requests_total": deduped,
+            "actors": plane.actor_count(),
+            "sessions": plane.session_count(),
+            "proto_errors": plane.proto_errors(),
+            # Replayed pre-restart frames rejected by the epoch handshake
+            # (clients re-issue; never wrongly deduped against the lost
+            # reply cache).
+            "stale_epoch_rejections_total": plane.stale_epoch_total(),
+            # Frames the divergence breaker pushed back to Python.
+            "native_degraded_total": plane.degraded_total(),
+            "divergence_trips_total": self._native_divergence_trips,
+            "degraded_reason": self._native_degraded_reason,
+            "methods": methods,
+        }
+
+    # ---------- native mirror audit (divergence breaker) ----------
+
+    async def _native_audit_loop(self):
+        """Periodically compare the Python mirror with the native
+        plane's tables. Two consecutive mismatched sweeps (in-flight
+        ladders make single-sweep skew normal) or a proto-error burst
+        trips the breaker: the plane's owned methods degrade to the
+        Python handlers (counted native_degraded_total) and stay there —
+        re-arming needs an operator restart, because a real divergence
+        must be understood, not retried."""
+        period = max(1.0, self.config.health_check_period_s)
+        prev_mismatch = ""
+        while True:
+            await asyncio.sleep(period)
+            plane = self._actor_plane
+            if plane is None or self._native_degraded_reason:
+                return
+            try:
+                proto = plane.proto_errors()
+                burst = proto - self._audit_proto_seen >= 10
+                self._audit_proto_seen = proto
+                mismatch = self._native_mirror_mismatch(plane)
+                if burst:
+                    self._trip_native_breaker(
+                        f"proto-error burst ({proto} total)")
+                elif mismatch and prev_mismatch:
+                    self._trip_native_breaker(mismatch)
+                prev_mismatch = mismatch
+            except Exception:
+                logger.exception("native mirror audit sweep failed")
+
+    def _native_mirror_mismatch(self, plane) -> str:
+        """One audit sweep; returns a divergence description or ''."""
+        py_native = {aid: a for aid, a in self.actors.items()
+                     if a.get("native") and a["state"] != ACTOR_DEAD}
+        n_plane = plane.actor_count()
+        if n_plane != len(py_native):
+            return (f"actor-count divergence: plane={n_plane} "
+                    f"mirror={len(py_native)}")
+        for aid, a in py_native.items():
+            pstate = plane.actor_state(aid)
+            if pstate is None:
+                return f"actor {aid[:8]} missing from native plane"
+            # ALIVE in the mirror comes only from the plane's own ready
+            # event, so the plane must agree; PENDING/RESTARTING can
+            # legitimately lag one event behind.
+            if a["state"] == ACTOR_ALIVE and pstate != "ALIVE":
+                return (f"actor {aid[:8]} state divergence: "
+                        f"plane={pstate} mirror=ALIVE")
+        return ""
+
+    def _trip_native_breaker(self, reason: str) -> None:
+        plane = self._actor_plane
+        if plane is None or self._native_degraded_reason:
+            return
+        self._native_degraded_reason = reason
+        self._native_divergence_trips += 1
+        for m in ("RegisterActor", "ActorReady"):
+            try:
+                plane.set_degraded(m, True)
+            except Exception:
+                logger.exception("native breaker trip failed for %s", m)
+        logger.error("native control plane DEGRADED to Python: %s",
+                     reason)
+        from ray_tpu_torch.util import events
+
+        events.record("ERROR", "gcs",
+                      f"native control plane degraded: {reason}")
+
     async def handle_get_event_loop_stats(self, conn, payload):
-        """Event-loop/RPC dispatch stats for the GCS server (analogue of
+        """Event-loop/RPC dispatch stats for the GCS pump (analogue of
         the reference's event_stats.h surface): per-handler call counts
-        and latencies from the server's EventLoopStats."""
-        return {"server": self._server.stats.snapshot()}
+        and latencies from the server's EventLoopStats, plus the native
+        in-pump service's counters (frames it handled never reach the
+        Python dispatch table, so they are reported separately)."""
+        out = {"server": self._server.stats.snapshot()}
+        if self._native_svc is not None:
+            handled, appends, fails = self._native_svc.counters()
+            n_ns, n_rows = self._native_svc.kv_stats()
+            out["native"] = {
+                "handled": handled, "wal_appends": appends,
+                "wal_failures": fails,
+                "proto_errors": self._native_svc.proto_errors(),
+                "kv_namespaces": n_ns, "kv_rows": n_rows,
+            }
+        else:
+            out["native"] = None
+        out["native_control"] = self._native_control_stats()
+        return out
 
     async def handle_get_config(self, conn, payload):
         return {"config": self.config.to_json()}
@@ -1379,6 +2567,7 @@ def main():
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=0)
     parser.add_argument("--config", default="")
+    parser.add_argument("--persist", default="")
     parser.add_argument("--ready-fd", type=int, default=-1)
     args = parser.parse_args()
 
@@ -1398,7 +2587,7 @@ def main():
             asyncio.get_running_loop().set_task_factory(
                 asyncio.eager_task_factory)
         config = Config.from_json(args.config) if args.config else Config()
-        server = GcsServer(config)
+        server = GcsServer(config, persistence_path=args.persist or None)
         host, port = await server.start(args.host, args.port)
         if args.ready_fd >= 0:
             import os

@@ -13,12 +13,21 @@ from __future__ import annotations
 import os
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 LIB_DIR = os.path.normpath(
     os.path.join(os.path.dirname(__file__), "..", "_build", "runtime"))
 SRC_DIR = os.path.join(os.path.dirname(__file__), "csrc")
 
-_build_lock = threading.Lock()
+# One lock a library: two threads of a process never compile the same
+# one twice, and different libraries build side by side (build_all).
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
+
+
+def _lock_for(lib_name: str) -> threading.Lock:
+    with _locks_guard:
+        return _locks.setdefault(lib_name, threading.Lock())
 
 
 def ensure_built(src_name: "str | tuple[str, ...]", lib_name: str,
@@ -33,7 +42,7 @@ def ensure_built(src_name: "str | tuple[str, ...]", lib_name: str,
     srcs = [os.path.join(SRC_DIR, n) for n in names]
     deps = srcs + [os.path.join(SRC_DIR, n) for n in dep_names]
     lib_path = os.path.join(LIB_DIR, lib_name)
-    with _build_lock:
+    with _lock_for(lib_name):
         if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= max(
                 os.path.getmtime(s) for s in deps):
             return lib_path
@@ -49,3 +58,23 @@ def ensure_built(src_name: "str | tuple[str, ...]", lib_name: str,
                 f"{proc.stderr[-4000:]}")
         os.replace(tmp, lib_path)
     return lib_path
+
+
+def build_all() -> None:
+    """Build (and load) every runtime library at once, one g++ each in
+    parallel: the GCS and the raylet otherwise build theirs one after
+    another at their first start."""
+    from ray_tpu_torch._private import (native_actor_plane, native_fastpath,
+                                        native_gcs_service, native_gcs_store,
+                                        native_lease_plane,
+                                        native_raylet_core, native_scheduler,
+                                        native_transfer, object_store)
+
+    loaders = (object_store._get_lib, native_scheduler._get_lib,
+               native_raylet_core._get_lib, native_gcs_store._get_lib,
+               native_gcs_service._load, native_fastpath._load,
+               native_actor_plane._load, native_lease_plane._load,
+               native_transfer._load)
+    with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
+        for fut in [pool.submit(load) for load in loaders]:
+            fut.result()

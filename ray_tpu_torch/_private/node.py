@@ -100,6 +100,8 @@ class RuntimeNode:
         session_id = uuid.uuid4().hex[:8]
         self.session_dir = os.path.join(self.config.temp_dir, f"session-{session_id}")
         os.makedirs(os.path.join(self.session_dir, "logs"), exist_ok=True)
+        self.gcs_persist_path = os.path.join(self.session_dir,
+                                             "gcs_state.msgpack")
         self.gcs_proc = None
         self.gcs_host: str | None = None
         self.gcs_port: int | None = None
@@ -110,13 +112,31 @@ class RuntimeNode:
         proc, line = _spawn_with_ready(
             [sys.executable, "-m", "ray_tpu_torch._private.gcs",
              f"--config={self.config.to_json()}",
-             f"--port={port}"],
+             f"--port={port}",
+             f"--persist={self.gcs_persist_path}"],
             os.path.join(self.session_dir, "logs", "gcs.log"))
         self.gcs_proc = proc
         host, port_s = line.rsplit(":", 1)
         self.gcs_host, self.gcs_port = host, int(port_s)
         self._register_atexit()
         return host, int(port_s)
+
+    def kill_gcs(self):
+        """SIGKILL the GCS (fault-injection; reference: GCS FT tests)."""
+        if self.gcs_proc is not None:
+            try:
+                self.gcs_proc.kill()
+                self.gcs_proc.wait(timeout=5)
+            except Exception:
+                pass
+            self.gcs_proc = None
+
+    def restart_gcs(self):
+        """Restart the GCS on the SAME port with its persisted state
+        (reference: GCS restarts with Redis persistence; raylets resync
+        via NotifyGCSRestart, node_manager.cc:1168)."""
+        assert self.gcs_port, "GCS never started"
+        return self.start_gcs(port=self.gcs_port)
 
     def attach_gcs(self, host: str, port: int):
         self.gcs_host, self.gcs_port = host, port

@@ -42,9 +42,50 @@ from ray_tpu_torch._private.common import (_maybe_attach_daemon_profiler,
 from ray_tpu_torch._private.config import Config
 from ray_tpu_torch._private.ids import NodeID, ObjectID
 from ray_tpu_torch._private.object_store import ObjectStoreClient, ObjectStoreFullError
-from ray_tpu_torch._private.resource_core import RayletResourceCore
 
 logger = logging.getLogger(__name__)
+
+# EV_INJECT token the native lease plane stamps on its mirror events
+# (arrives in the conn_id slot; see fast_rpc.FastRpcServer.inject_handler).
+_LEASE_PLANE_TOKEN = 2
+
+
+class _GateDeque(deque):
+    """pending_leases with a change hook: the native lease plane's FIFO
+    fairness gate must close the instant anything queues (a fresh request
+    granted natively ahead of the queue would reintroduce the
+    grant/return carousel starvation) and reopen when it drains."""
+
+    def __init__(self, on_change):
+        super().__init__()
+        self._on_change = on_change
+
+    def append(self, item):
+        super().append(item)
+        self._on_change()
+
+    def appendleft(self, item):
+        super().appendleft(item)
+        self._on_change()
+
+    def popleft(self):
+        item = super().popleft()
+        self._on_change()
+        return item
+
+    def pop(self):
+        item = super().pop()
+        self._on_change()
+        return item
+
+    def remove(self, item):
+        super().remove(item)
+        self._on_change()
+
+    def clear(self):
+        super().clear()
+        self._on_change()
+
 
 def _cgroup_memory_fraction() -> float:
     """Usage fraction of the enclosing cgroup limit (v2 then v1), or 0.0
@@ -111,6 +152,7 @@ class WorkerHandle:
         self.worker_id = worker_id
         self.conn: rpc.Connection | None = None   # worker -> raylet channel
         self.address: tuple[str, int] | None = None  # worker's own rpc server
+        self.fp_port = 0  # native fastpath listener (0 = asyncio only)
         # Spawned on behalf of a specific in-flight grant: must NOT enter
         # the idle pool at registration, or a concurrent grant pops it
         # and the same process gets assigned twice (double AssignActor =
@@ -333,8 +375,11 @@ class Raylet:
             resources = {**resources, "GPU": float(len(self._gpu_ids))}
         self.total_resources = normalize_resources(resources)
         # ALL node-local accounting (resource pool, PG bundle pools,
-        # lease records, blocked-worker credits, GPU card ids) lives in
-        # the resource core — there is no second copy to drift.
+        # lease records, blocked-worker credits, the GPU card free list)
+        # lives in the native core (csrc/raylet_core.cc) — there is no
+        # Python shadow copy.
+        from ray_tpu_torch._private.native_raylet_core import RayletResourceCore
+
         self.rcore = RayletResourceCore(self.total_resources,
                                         gpu_ids=self._gpu_ids)
         # Arena on tmpfs when possible (reference: plasma allocates on
@@ -360,7 +405,7 @@ class Raylet:
         self.workers: dict[str, WorkerHandle] = {}
         self._log_tails: dict[str, Raylet._LogTail] = {}
         self.idle_workers: deque[WorkerHandle] = deque()
-        self.pending_leases: deque = deque()
+        self.pending_leases: deque = _GateDeque(self._sync_lease_gate)
         # Per-job fair share (issue 20): the pump visits queued leases
         # round-robin across job ids (per-job FIFO within a lane), so one
         # tenant's burst cannot starve peers queued behind it. The
@@ -369,15 +414,29 @@ class Raylet:
         self._lease_rr_last: str = ""
         self._lease_starvation = 0
         self._lease_grants_by_job: dict[str, int] = {}
-        self._starvation_threshold_s = 5.0
+        self._starvation_threshold_s = float(
+            os.environ.get("RAY_TPU_TORCH_LEASE_STARVATION_S", "5.0"))
         self.cluster_view: dict = {}
         self.gcs_conn: rpc.Connection | None = None
-        # The asyncio RPC server (the reference moves this onto its native
-        # pump, which returns in the port with ROADMAP A1's second part).
+        # Native-pump server when available (csrc/fastpath.cc): the
+        # lease/return/pin cycle's accept/framing/writev all ride the C++
+        # epoll thread (reference: node_manager.cc:1778 handles leases on
+        # a C++ asio loop); Python keeps only the protocol logic.
         from ray_tpu_torch._private.fast_rpc import make_server
 
         self.server = make_server(self._handlers(),
                                   name=f"raylet-{self.node_id[:8]}")
+        # Native lease plane (csrc/raylet_lease.cc, RAY_TPU_TORCH_NATIVE_CONTROL=1):
+        # simple-shape RequestWorkerLease grants and native-lease returns
+        # run on the pump thread against the SAME rcore; Python mirrors
+        # bookkeeping off EV_INJECT events and arbitrates worker identity
+        # through the plane's pool (push/claim). Installed by
+        # _native_service_factory at server start.
+        self._lease_plane = None
+        from ray_tpu_torch._private.fast_rpc import FastRpcServer
+
+        if isinstance(self.server, FastRpcServer):
+            self.server.service_factory = self._native_service_factory
         self.host = "127.0.0.1"
         self.port: int | None = None
         self.draining = False
@@ -403,8 +462,17 @@ class Raylet:
         # promote relocated copies to primaries).
         self._pulled_copies: dict[str, str] = {}
         self._tasks: list[asyncio.Task] = []
+        # Divergence breaker bookkeeping (mirrors gcs.py): a tripped
+        # breaker degrades the plane's owned methods to Python for the
+        # life of the process.
+        self._native_degraded_reason = ""
+        self._native_divergence_trips = 0
+        self._audit_proto_seen = 0
         self._lease_seq = 0
         self._num_leases_granted = 0
+        # Completed (re-)registrations with the GCS: a restarted GCS shows
+        # as one more (GetState "gcs_registrations").
+        self._gcs_registrations = 0
         self._last_spawn_failure = "worker startup failed"
         # Recently-rejected infeasible demands, kept ~10s for the autoscaler.
         self._infeasible_demand: list[tuple[float, dict]] = []
@@ -427,6 +495,15 @@ class Raylet:
         # a burst at typical pool sizes (~30) isn't serialized at all.
         self._spawn_slots = asyncio.Semaphore(
             max(32, 4 * int(self.total_resources.get("CPU", 4))))
+        # Native C++ scheduling core mirrors the GCS-fed cluster view for
+        # spillback decisions (csrc/scheduler.cc; the Python policy runs
+        # only with RAY_TPU_TORCH_NATIVE_CONTROL=0).
+        from ray_tpu_torch._private import native_scheduler
+
+        self._native_sched = None
+        self._native_known: set[str] = set()
+        if native_scheduler.available():
+            self._native_sched = native_scheduler.ClusterScheduler()
 
     def _handlers(self):
         return {
@@ -461,28 +538,148 @@ class Raylet:
             "NodeDeviceObjects": self.handle_node_device_objects,
         }
 
-    # ---------- idle pool ----------
+    # ---------- native lease plane ----------
+
+    def _native_service_factory(self, pump):
+        """Install the native lease plane into the raylet pump (called
+        by FastRpcServer.start between pump creation and listen). With
+        RAY_TPU_TORCH_NATIVE_CONTROL=0 the Python lease handlers answer
+        every lease. A plane that fails to install raises, after the
+        half-constructed plane is destroyed (never left installed)."""
+        from ray_tpu_torch._private import native_lease_plane
+
+        if not native_lease_plane.available():
+            return None
+        plane = None
+        try:
+            plane = native_lease_plane.RayletLeasePlane(
+                pump, inject_token=_LEASE_PLANE_TOKEN, rcore=self.rcore)
+            plane.set_node(self.node_id)
+            # Restart handshake: stamp the server incarnation epoch so a
+            # stamped request replayed from before a raylet restart (its
+            # reply cache died with the process) is rejected as stale
+            # instead of silently re-executed (a replayed CreateActor
+            # re-run would fork the actor).
+            plane.set_epoch(rpc._server_sessions.epoch)
+            if self.draining:
+                plane.set_draining(True)
+                plane.set_node_state(2)  # native_policy.NODE_DRAINING
+            # Replay the live lease ledger: any natively-granted lease
+            # already in the worker mirror (no-op at boot; keeps the
+            # plane's ReturnWorker ownership exact if the factory ever
+            # runs against live state).
+            native_prefix = f"{self.node_id[:8]}-n"
+            for w in self.workers.values():
+                if w.leased and (w.lease_id or "").startswith(
+                        native_prefix):
+                    plane.restore_lease(w.lease_id, w.worker_id)
+            # install() is the LAST step: a half-wired plane must never
+            # answer frames (close-on-failure below stays safe because
+            # the pump hook was never pointed at it).
+            plane.install()
+            self.server.inject_handler = self._on_native_inject
+            self._lease_plane = plane
+            logger.info("native lease plane active (grant/return in-pump)")
+            return plane
+        except Exception:
+            logger.exception("native lease plane failed to install")
+            if plane is not None:
+                try:
+                    plane.close()
+                except Exception:
+                    logger.exception("native lease plane close failed")
+            raise
+
+    def _sync_lease_gate(self):
+        plane = getattr(self, "_lease_plane", None)
+        if plane is not None:
+            plane.set_gate(not self.pending_leases)
 
     def _pool_worker(self, w: WorkerHandle) -> None:
+        """Land a worker in the idle pool — and mirror it into the
+        native plane's grant pool. Every idle_workers entry must exist
+        in the mirror, or the claim arbitration in _take_idle_worker
+        would treat it as natively-granted and skip it forever. A worker
+        that held a card stays out of the mirror: the plane grants only
+        CPU leases, and such a worker serves only leases of its cards."""
         w.idle_since = time.monotonic()
         self.idle_workers.append(w)
+        if self._lease_plane is not None and not w.device_pin:
+            self._lease_plane.push(w.worker_id, w.address[0],
+                                   w.address[1], getattr(w, "fp_port", 0))
 
     def _take_idle_worker(self, visible: str = "") -> WorkerHandle | None:
         """An idle worker for a lease whose cards are `visible`
         (CUDA_VISIBLE_DEVICES form): one already pinned to them, else one
         that never held a card. A worker that held other cards may have
         initialised CUDA over them and could not switch (it would fail
-        the task and exit), so it stays idle for a lease like its last."""
-        fallback = None
-        for w in self.idle_workers:
-            if w.device_pin == visible:
-                self.idle_workers.remove(w)
-                return w
-            if fallback is None and not w.device_pin:
-                fallback = w
-        if fallback is not None:
-            self.idle_workers.remove(fallback)
-        return fallback
+        the task and exit), so it stays idle for a lease like its last.
+
+        Only workers that never held a card are in the native plane's
+        pool (_pool_worker), and claim() is the arbitration point with
+        the pump thread: such a worker the plane already granted fails
+        the claim and is skipped (its lease_granted event is in
+        flight)."""
+        if visible:
+            for w in self.idle_workers:
+                if w.device_pin == visible:
+                    self.idle_workers.remove(w)
+                    return w
+        for w in list(self.idle_workers):
+            if w.device_pin:
+                continue
+            self.idle_workers.remove(w)
+            if not self._claim(w):
+                continue
+            return w
+        return None
+
+    def _claim(self, w: WorkerHandle) -> bool:
+        """Take an idle worker out of the native plane's pool; False if
+        the plane granted it first. A worker that held a card was never
+        pooled there (_pool_worker): Python owns it."""
+        return (self._lease_plane is None or bool(w.device_pin)
+                or self._lease_plane.claim(w.worker_id))
+
+    def _unpool_worker(self, w: WorkerHandle) -> None:
+        if self._lease_plane is not None:
+            self._lease_plane.remove(w.worker_id)
+
+    def _on_native_inject(self, token, body):
+        if token != _LEASE_PLANE_TOKEN:
+            return
+        try:
+            event, payload = rpc.unpack(body)
+        except Exception:
+            logger.exception("native lease plane: bad inject event")
+            return
+        w = self.workers.get(payload.get("worker_id", ""))
+        if event == "lease_granted":
+            self._num_leases_granted += 1
+            if w is not None:
+                try:
+                    self.idle_workers.remove(w)
+                except ValueError:
+                    pass
+                w.leased = True
+                w.leased_at = time.monotonic()
+                w.lease_id = payload["lease_id"]
+                w.lease_resources = {}
+                w.lease_pg = None
+        elif event == "worker_returned":
+            # The plane already released the rcore lease; only the
+            # Python-side worker bookkeeping happens here.
+            if w is not None:
+                w.blocked = False
+                w.leased = False
+                w.lease_id = None
+                w.lease_resources = {}
+                w.lease_pg = None
+                if payload.get("kill"):
+                    self._kill_worker(w)
+                else:
+                    self._pool_worker(w)
+            self._pump_pending_leases()
 
     async def start(self, host: str = "127.0.0.1", port: int = 0):
         self.host, self.port = await self.server.start(host, port)
@@ -556,6 +753,11 @@ class Raylet:
             connect_timeout_s=self.config.rpc_connect_timeout_s,
             on_reconnect=self._gcs_handshake)
         self.gcs_conn.on_close(self._on_gcs_session_failed)
+        # Native data plane: serve this store's objects to peers from C++
+        # (payload bytes never cross the Python daemons).
+        from ray_tpu_torch._private.native_transfer import TransferServer
+
+        self.transfer_server = TransferServer(self.store_path)
         resp = await self.gcs_conn.call("RegisterNode", {
             "node_id": self.node_id,
             "host": self.host,
@@ -564,6 +766,7 @@ class Raylet:
             "labels": self.labels,
             "store_path": self.store_path,
             "is_head": self.is_head,
+            "transfer_port": self.transfer_server.port,
         })
         if resp.get("config"):
             self.config = Config.from_json(resp["config"])
@@ -585,6 +788,9 @@ class Raylet:
                                            name="heartbeat-loop"))
         self._tasks.append(supervised_task(self._reap_loop(),
                                            name="reap-loop"))
+        if self._lease_plane is not None:
+            self._tasks.append(supervised_task(
+                self._native_audit_loop(), name="native-audit-loop"))
         self._tasks.append(supervised_task(self._log_tail_loop(),
                                            name="log-tail-loop"))
         if self.config.memory_usage_threshold > 0:
@@ -612,6 +818,12 @@ class Raylet:
         if self._zygote is not None:
             zygote, self._zygote = self._zygote, None
             await zygote.aclose()
+        if getattr(self, "transfer_server", None) is not None:
+            await asyncio.to_thread(self.transfer_server.stop)
+        # server.stop() joins the pump thread, then destroys the native
+        # lease plane — which must precede rcore.close() below (the
+        # plane books resources through rcore's entry points).
+        self._lease_plane = None
         await self.server.stop()
         if self.gcs_conn:
             await self.gcs_conn.close()
@@ -623,6 +835,7 @@ class Raylet:
                 os.unlink(self.store_path)
             except OSError:
                 pass
+        self.rcore.close()
 
     async def _reconcile_actors(self, conn) -> None:
         """After an outage the GCS may have failed our actors over
@@ -680,6 +893,7 @@ class Raylet:
                 }, timeout=self.config.health_check_timeout_s)
                 if resp.get("ok"):
                     self.cluster_view = resp.get("cluster", {})
+                    self._sync_native_view()
                     # A fresher view may unblock queued leases via spillback.
                     self._pump_pending_leases()
                 elif resp.get("reregister"):
@@ -726,6 +940,8 @@ class Raylet:
             "labels": self.labels,
             "store_path": self.store_path,
             "is_head": self.is_head,
+            "transfer_port": getattr(self, "transfer_server", None)
+            and self.transfer_server.port or 0,
         }, timeout=self.config.rpc_call_timeout_s)
         if not resp.get("ok"):
             # Permanent rejection (the GCS knows this identity is dead):
@@ -741,6 +957,7 @@ class Raylet:
                 self._pending_death_reports.insert(0, report)
                 break
         await self._reconcile_actors(conn)
+        self._gcs_registrations += 1
         logger.info("raylet %s re-registered with GCS", self.node_id[:8])
 
     def _on_gcs_session_failed(self):
@@ -785,10 +1002,14 @@ class Raylet:
             soft = self._idle_soft_limit()
             while len(self.idle_workers) > soft:
                 w = self.idle_workers.popleft()
+                if not self._claim(w):
+                    continue  # native grant in flight: not actually idle
                 self._kill_worker(w)
             for w in list(self.idle_workers):
                 if now - w.idle_since > 60.0 and len(self.idle_workers) > 1:
                     self.idle_workers.remove(w)
+                    if not self._claim(w):
+                        continue
                     self._kill_worker(w)
 
     async def _memory_monitor_loop(self):
@@ -837,6 +1058,7 @@ class Raylet:
                       worker_id=w.worker_id, actor_id=w.actor_id)
         w.dead = True
         self.workers.pop(w.worker_id, None)
+        self._unpool_worker(w)
         if w in self.idle_workers:
             self.idle_workers.remove(w)
         if w.leased:
@@ -1078,6 +1300,7 @@ class Raylet:
     def _kill_worker(self, w: WorkerHandle):
         w.dead = True
         self.workers.pop(w.worker_id, None)
+        self._unpool_worker(w)
         try:
             w.proc.kill()
         except Exception:
@@ -1094,6 +1317,7 @@ class Raylet:
                     "node_id": self.node_id}
         w.conn = conn
         w.address = (payload["host"], payload["port"])
+        w.fp_port = payload.get("fp_port", 0)
         conn.on_close(lambda: None if w.dead else supervised_task(
             self._on_worker_death(w, "worker connection lost")))
         w.registered.set()
@@ -1148,19 +1372,20 @@ class Raylet:
             w.reserved = False
         if w in self.idle_workers:
             self.idle_workers.remove(w)
+            self._claim(w)
         return w
 
     # ---------- leases / scheduling ----------
 
     @property
     def available(self) -> dict:
-        """Node-pool availability snapshot from the resource core (what
+        """Node-pool availability snapshot from the native core (what
         heartbeats report and spillback checks read)."""
         return self.rcore.available()
 
     def _acquire(self, resources: dict, pg_id: str,
                  bundle_index: int) -> str | None:
-        """Acquire resources in the resource core under a fresh lease id.
+        """Acquire resources in the native core under a fresh lease id.
 
         Returns the lease id, or None when the demand does not fit now
         (or the PG bundle is absent/uncommitted — queued either way)."""
@@ -1379,18 +1604,49 @@ class Raylet:
             w.blocked = False
         return {}
 
-    def _pick_spillback(self, resources: dict,
-                        view: dict | None = None) -> dict | None:
+    def _sync_native_view(self):
+        """Mirror the GCS cluster view into the native scheduler core."""
+        if self._native_sched is None:
+            return
+        seen = set()
+        for nid, info in self.cluster_view.items():
+            seen.add(nid)
+            self._native_sched.update_node(
+                nid, total=info.get("total_resources"),
+                available=info.get("available_resources"),
+                labels=info.get("labels"),
+                # Draining peers stay in the data-plane view (object
+                # pulls) but must not win spillback picks.
+                alive=info.get("state", "ALIVE") == "ALIVE")
+        for nid in self._native_known - seen:
+            self._native_sched.remove_node(nid)
+        self._native_known = seen
+
+    def _pick_spillback(self, resources: dict, view: dict | None = None,
+                        debit: bool = False) -> dict | None:
         """Hybrid policy tail: among alive peers that fit the demand, pick
         the best-utilized (pack) candidate (reference: top-k hybrid policy,
         hybrid_scheduling_policy.h:107-124 — we take k=1 of the sorted list
         since the cluster view is already fresh).  Pass `view` to pick
         against a locally-debited copy (bulk spill decisions).
 
-        Bulk spill decisions (the pending-lease pump) pass a debited copy
-        of the view, so a burst fans out across peers instead of herding
-        onto one stale "best" node (the next heartbeat restores ground
-        truth)."""
+        `debit=True` immediately charges the demand against the chosen
+        node in the native mirror, so CONCURRENT spill decisions fan out
+        across peers instead of herding onto one stale "best" node (the
+        next heartbeat restores ground truth). Without it, a burst of
+        direct-path lease requests all redirect to the same peer. Callers
+        that pick conditionally use _debit_spill at the decision point
+        instead."""
+        if self._native_sched is not None and view is None:
+            nid = self._native_sched.pick_node(resources, "pack",
+                                               exclude=self.node_id)
+            info = self.cluster_view.get(nid) if nid else None
+            if info is None:
+                return None
+            if debit:
+                self._native_sched.debit_node(nid, resources)
+            return {"node_id": nid, "host": info["host"],
+                    "port": info["raylet_port"]}
         candidates = []
         for nid, info in (view if view is not None
                           else self.cluster_view).items():
@@ -1408,6 +1664,13 @@ class Raylet:
         candidates.sort(key=lambda c: -c[0])
         _, nid, info = candidates[0]
         return {"node_id": nid, "host": info["host"], "port": info["raylet_port"]}
+
+    def _debit_spill(self, spill: dict, resources: dict) -> dict:
+        """Charge a taken spill decision against the native mirror (see
+        _pick_spillback's debit note) and pass the decision through."""
+        if self._native_sched is not None:
+            self._native_sched.debit_node(spill["node_id"], resources)
+        return spill
 
     def _note_infeasible(self, resources: dict):
         now = time.monotonic()
@@ -1430,7 +1693,7 @@ class Raylet:
         if self.draining:
             spill = self._pick_spillback(resources)
             if spill:
-                return {"spillback": spill}
+                return {"spillback": self._debit_spill(spill, resources)}
             # No peer fits right now: a drain rejection is retry-
             # elsewhere, NEVER a permanent failure — a task that raced
             # the drain flag must not be failed infeasible (the owner
@@ -1483,7 +1746,7 @@ class Raylet:
             spill = self._pick_spillback(resources)
             if spill is not None and (
                     is_spread or not resources_fit(self.available, resources)):
-                return {"spillback": spill}
+                return {"spillback": self._debit_spill(spill, resources)}
             if is_spread:
                 # No better peer: run locally if possible (same FIFO
                 # fairness gate as the non-spread path — a spread
@@ -1526,7 +1789,7 @@ class Raylet:
                 pass
             spill = self._pick_spillback(resources)
             if spill:
-                return {"spillback": spill}
+                return {"spillback": self._debit_spill(spill, resources)}
             return {"error": "lease timeout: insufficient resources", "retry": True}
 
     async def _grant_lease(self, lease_id, resources, pg_id, bundle_index,
@@ -1558,12 +1821,13 @@ class Raylet:
         w.lease_id = lease_id
         w.lease_resources = resources
         # Observability only (which pool the lease drew from is tracked
-        # by the resource core; -1 records the wildcard request as made).
+        # natively; -1 records the wildcard request as made).
         w.lease_pg = (pg_id, bundle_index) if pg_id else None
         granted_at = time.time()
         return {"granted": True, "lease_id": lease_id,
                 "worker_id": w.worker_id,
                 "worker_host": w.address[0], "worker_port": w.address[1],
+                "worker_fp_port": getattr(w, "fp_port", 0),
                 "node_id": self.node_id,
                 # Raylet-side lifecycle stamps: queue wait (request
                 # arrival → resource acquisition) and worker attach time
@@ -1603,9 +1867,9 @@ class Raylet:
         import copy
 
         debit_view = None
-        # One availability snapshot per pass (per-item reads would be
-        # O(queue depth) on the hottest scheduling path), refreshed after
-        # successful acquires.
+        # One availability snapshot per pass (each is a native call +
+        # wire round-trip; per-item reads would be O(queue depth) on the
+        # hottest scheduling path), refreshed after successful acquires.
         avail = None
         # Fair-share visit order: strict FIFO would hand every freed
         # slot to the head-of-queue tenant, so a 100k-task burst starves
@@ -1651,6 +1915,12 @@ class Raylet:
                 # revisits the queue every round and can spill it). Each
                 # spill decision debits the target locally so a burst fans
                 # out across peers instead of herding onto one node.
+                if self._native_sched is not None:
+                    spill = self._pick_spillback(resources, debit=True)
+                    if spill is not None:
+                        self.pending_leases.remove(item)
+                        fut.set_result({"spillback": spill})
+                    continue
                 if debit_view is None:
                     debit_view = copy.deepcopy(self.cluster_view)
                 spill = self._pick_spillback(resources, view=debit_view)
@@ -2020,6 +2290,24 @@ class Raylet:
                 return {"ok": True}
             locations = payload.get("locations") or []
             last_err = "no locations"
+            # Native plane first: ONE multi-peer call stripes chunks
+            # across every location that has a transfer server
+            # (reference: pull_manager requests chunks from all copies).
+            native_peers = [
+                info for nid in locations
+                if (info := self.cluster_view.get(nid)) is not None
+                and info.get("transfer_port")]
+            if native_peers:
+                if await self._native_pull(native_peers, oid):
+                    self._pull_locks.pop(oid_hex, None)
+                    # Stripes may have come from several peers; any one
+                    # alive source is enough for "a copy exists there".
+                    src = next((nid for nid in locations
+                                if nid in self.cluster_view), "")
+                    if src:
+                        self._pulled_copies[oid_hex] = src
+                    return {"ok": True}
+                last_err = "native pull failed from all peers"
             for nid in locations:
                 info = self.cluster_view.get(nid)
                 if info is None:
@@ -2036,6 +2324,49 @@ class Raylet:
                     last_err = str(e)
             self._pull_locks.pop(oid_hex, None)
             return {"ok": False, "reason": last_err}
+
+    async def _native_pull(self, infos: list, oid: ObjectID) -> bool:
+        """Pull via peers' C++ transfer servers (bulk bytes stream
+        shm-to-shm without touching Python; chunks stripe across peers).
+        False = use the RPC path."""
+        # Same-HOST peer: both arenas are local shm files — attach the
+        # peer's arena and copy object bytes directly (ONE memcpy, no
+        # sockets). This is plasma's same-node shared-memory property
+        # extended across co-hosted raylets (fake multi-node clusters,
+        # multi-raylet hosts); cross-host peers take the TCP stripes.
+        # same_host_zero_copy=False disables the shortcut so the chunked
+        # plane is measurable on one host (object_broadcast_chunked).
+        for info in (infos if self.config.same_host_zero_copy else []):
+            if info.get("host") == self.host and info.get("store_path"):
+                try:
+                    if await self._local_peer_copy(info["store_path"], oid):
+                        return True
+                except Exception:
+                    logger.exception("local peer copy failed; using TCP")
+        peers = [(info["host"], info["transfer_port"]) for info in infos]
+        if not peers:
+            return False
+        from ray_tpu_torch._private import native_transfer
+
+        loop = asyncio.get_running_loop()
+        try:
+            rc = await loop.run_in_executor(
+                None, native_transfer.fetch_multi, self.store_path, peers,
+                oid.binary())
+        except Exception:
+            return False
+        if rc == -3:
+            # Local arena full: make room like the RPC path would, then
+            # retry once.
+            try:
+                if not await self._ensure_room(64 << 20):
+                    return False
+            except Exception:
+                return False
+            rc = await loop.run_in_executor(
+                None, native_transfer.fetch_multi, self.store_path, peers,
+                oid.binary())
+        return rc == 0
 
     async def _local_peer_copy(self, peer_store_path: str,
                                oid: ObjectID) -> bool:
@@ -2158,6 +2489,11 @@ class Raylet:
             return {"ok": True, "draining": True,
                     "already": True, "reason": self.drain_reason}
         self.draining = True
+        if self._lease_plane is not None:
+            self._lease_plane.set_draining(True)
+            # Fault-aware rung for the native grant condition: DRAINING
+            # routes every RequestWorkerLease to Python's drain logic.
+            self._lease_plane.set_node_state(2)  # NODE_DRAINING
         self.drain_reason = reason
         self.drain_deadline_s = deadline_s
         self._drain_deadline_mono = time.monotonic() + deadline_s
@@ -2223,7 +2559,8 @@ class Raylet:
                 spill = self._pick_spillback(resources) if spillable \
                     else None
                 if spill is not None:
-                    fut.set_result({"spillback": spill})
+                    fut.set_result(
+                        {"spillback": self._debit_spill(spill, resources)})
                     respilled += 1
                 else:
                     fut.set_result({"error": "node draining",
@@ -2336,8 +2673,7 @@ class Raylet:
     async def _evacuate_objects(self):
         """Push every sealed (or spilled) local object to an alive peer
         by asking the peer to PullObject from us — the existing pull
-        plane (same-host arena copy, chunked pulls, spill-restore) does
-        the bytes.
+        plane (native shm/TCP stripes, spill-restore) does the bytes.
         Bounded by self._drain_deadline_mono (re-read per object: a
         superseding drain may tighten it). Returns (relocations,
         n_evacuated, bytes_evacuated, n_left)."""
@@ -2437,6 +2773,7 @@ class Raylet:
             "spilled_objects": len(self.spilled),
             "spilled_bytes": self._spilled_bytes,
             "num_restored": self._num_restored,
+            "gcs_registrations": self._gcs_registrations,
             "draining": self.draining,
             "drain_reason": self.drain_reason,
             "drain_stats": self._drain_stats,
@@ -2446,12 +2783,93 @@ class Raylet:
             # as ray_tpu_rpc_* gauges in util/metrics.
             "rpc_sessions": rpc.session_stats(),
             "loaded_packages": loaded_packages(),
+            "native_control": self._native_control_stats(),
         }
+
+    def _native_control_stats(self):
+        if self._lease_plane is None:
+            return None
+        plane = self._lease_plane
+        handled, fallthrough, deduped = plane.counters()
+        methods = {}
+        for m in ("RequestWorkerLease", "ReturnWorker", "CreateActor"):
+            mh, mr, md = plane.method_stats(m)
+            methods[m] = {"handled": mh, "routed": mr, "degraded": md}
+        return {
+            "handled_total": handled,
+            # Frames the plane looked at but routed to Python (complex
+            # shapes, closed FIFO gate, empty pool, unknown leases).
+            "native_fallthrough_total": fallthrough,
+            "deduped_requests_total": deduped,
+            "idle_mirror": plane.idle_count(),
+            "sessions": plane.session_count(),
+            "proto_errors": plane.proto_errors(),
+            "stale_epoch_rejections_total": plane.stale_epoch_total(),
+            "native_degraded_total": plane.degraded_total(),
+            "divergence_trips_total": self._native_divergence_trips,
+            "degraded_reason": self._native_degraded_reason,
+            "native_leases": plane.native_lease_count(),
+            "methods": methods,
+        }
+
+    async def _native_audit_loop(self):
+        """Native↔Python mirror audit (mirrors gcs._native_audit_loop):
+        two consecutive sweeps where the plane's lease ledger disagrees
+        with the worker mirror — or a proto-error burst — trip the
+        breaker and degrade the owned methods to Python for the life of
+        the process (counted native_degraded_total)."""
+        period = max(1.0, self.config.health_check_period_s)
+        native_prefix = f"{self.node_id[:8]}-n"
+        prev_mismatch = ""
+        while True:
+            await asyncio.sleep(period)
+            plane = self._lease_plane
+            if plane is None or self._native_degraded_reason:
+                return
+            try:
+                proto = plane.proto_errors()
+                burst = proto - self._audit_proto_seen >= 10
+                self._audit_proto_seen = proto
+                n_plane = plane.native_lease_count()
+                n_mirror = sum(
+                    1 for w in self.workers.values()
+                    if w.leased and (w.lease_id or "").startswith(
+                        native_prefix))
+                mismatch = ""
+                if n_plane != n_mirror:
+                    mismatch = (f"lease-ledger divergence: plane="
+                                f"{n_plane} mirror={n_mirror}")
+                if burst:
+                    self._trip_native_breaker(
+                        f"proto-error burst ({proto} total)")
+                elif mismatch and prev_mismatch:
+                    self._trip_native_breaker(mismatch)
+                prev_mismatch = mismatch
+            except Exception:
+                logger.exception("native mirror audit sweep failed")
+
+    def _trip_native_breaker(self, reason: str) -> None:
+        plane = self._lease_plane
+        if plane is None or self._native_degraded_reason:
+            return
+        self._native_degraded_reason = reason
+        self._native_divergence_trips += 1
+        for m in ("RequestWorkerLease", "ReturnWorker", "CreateActor"):
+            try:
+                plane.set_degraded(m, True)
+            except Exception:
+                logger.exception("native breaker trip failed for %s", m)
+        logger.error("native lease plane DEGRADED to Python: %s", reason)
+        from ray_tpu_torch.util import events
+
+        events.record("ERROR", "raylet",
+                      f"native lease plane degraded: {reason}",
+                      node_id=self.node_id)
 
     async def handle_get_event_loop_stats(self, conn, payload):
         """Per-handler dispatch latency + drain stats for this raylet's
-        RPC loop (the EventLoopStats surface; analogue of
-        event_stats.h)."""
+        RPC loop (native pump or asyncio fallback — both expose the same
+        EventLoopStats surface; analogue of event_stats.h)."""
         return {"node_id": self.node_id,
                 "server": self.server.stats.snapshot()}
 

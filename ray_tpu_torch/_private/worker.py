@@ -66,6 +66,9 @@ logger = logging.getLogger(__name__)
 OBJ_PENDING = "pending"
 OBJ_READY = "ready"
 OBJ_FAILED = "failed"
+# A completion the native task loop holds for its batch is sent once the
+# task running after it has taken this long (_HeldDoneWatch).
+FP_HOLD_S = 0.002
 
 
 
@@ -210,12 +213,69 @@ class _PendingTask:
         self.seq = next(_task_seq)
 
 
+class _HeldDoneWatch:
+    """Sends a PushTaskBatch's held completions (TaskDone) once the task
+    running after them has taken `hold_s`: a fast task's result must not
+    wait for a slow batch-mate, as it does not on the asyncio task loop,
+    which sends each completion from the event loop. One daemon thread a
+    worker, started at the first hold, for every exec thread; it sleeps
+    while nothing is held, and a task that starts with completions held
+    costs one lock round."""
+
+    def __init__(self, hold_s: float):
+        self._hold_s = hold_s
+        self._cv = threading.Condition()
+        self._held: dict = {}  # exec thread ident -> (task start, flush)
+        self._idle = True
+        self._thread = None
+
+    def hold(self, flush) -> None:
+        """The calling exec thread starts a task while `flush` would send
+        completions it holds; None: it holds none (or the task ended)."""
+        key = threading.get_ident()
+        with self._cv:
+            if flush is None:
+                self._held.pop(key, None)
+                return
+            self._held[key] = (time.monotonic(), flush)
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._run, daemon=True, name="fp-held-done")
+                self._thread.start()
+            elif self._idle:
+                self._cv.notify()
+
+    def _run(self) -> None:
+        while True:
+            due = []
+            with self._cv:
+                if not self._held:
+                    self._idle = True
+                    self._cv.wait()
+                    self._idle = False
+                    continue
+                now = time.monotonic()
+                first = min(since for since, _ in self._held.values())
+                if now - first < self._hold_s:
+                    self._cv.wait(first + self._hold_s - now)
+                    continue
+                for key, (since, flush) in list(self._held.items()):
+                    if now - since >= self._hold_s:
+                        due.append(flush)
+                        del self._held[key]
+            for flush in due:
+                try:
+                    flush()
+                except Exception:
+                    logger.exception("fastpath: held completions not sent")
+
+
 class _LeaseSlot:
     """One leased worker. `outstanding` tracks tasks pushed but not yet
     completed (streamed TaskDone notifies drain it; a closed connection
     fails/retries everything left in it)."""
     __slots__ = ("conn", "lease_id", "worker_id", "node_id", "raylet", "busy",
-                 "idle_since", "outstanding", "worker_addr",
+                 "idle_since", "outstanding", "worker_addr", "fp_id",
                  "pushed_any", "lease_requested_ts", "lease_granted_ts",
                  "lease_timing")
 
@@ -231,6 +291,7 @@ class _LeaseSlot:
         self.idle_since = time.monotonic()
         self.outstanding: dict = {}  # task_id -> _PendingTask
         self.worker_addr = worker_addr  # Address wire of the worker
+        self.fp_id = None  # native fastpath conn id (None = asyncio path)
         self.pushed_any = False  # ever dispatched (spread recycle gate)
         # Lease negotiation wall-clock stamps for the lifecycle ladder
         # (per-task LEASE_* events clamp these to the task's own
@@ -288,6 +349,28 @@ class CoreWorker:
         # Card ids the raylet's current lease holds for this worker
         # (SetLeaseDevices); pinned at task start (accelerator.py).
         self._lease_gpu_ids: list[str] = []
+        # Native fastpath IO plane (csrc/fastpath.cc): C++ epoll pumps own
+        # the steady-state task cycle. _fp_exec_pump (pool workers only)
+        # serves inbound PushTaskBatch and carries TaskDone/TaskYield
+        # back; _fp_sub_pump (lazily, any submitter) carries this
+        # process's outbound pushes and completion drains.
+        # Off with the config's `fastpath` (RAY_TPU_TORCH_NATIVE_CONTROL=0);
+        # a pump that does not build or listen raises.
+        from ray_tpu_torch._private import native_fastpath
+        self._fp = native_fastpath if self.config.fastpath else None
+        self._fp_exec_pump = None
+        self._fp_sub_pump = None
+        self._fp_held_watch = _HeldDoneWatch(FP_HOLD_S)
+        self.fp_port = 0
+        self._fp_slots: dict = {}      # fp conn_id -> (_LeaseSlot, shape)
+        self._fp_backlog: list = []
+        self._fp_processing = False
+        self._inject_items: dict = {}  # token -> exec item (queue bypass)
+        self._inject_token = itertools.count(1)
+        self._inject_lock = threading.Lock()
+        if self._fp is not None and not is_driver:
+            self._fp_exec_pump = native_fastpath.FastPump()
+            self.fp_port = self._fp_exec_pump.listen()
         self._actor_instance = None
         self._actor_id: str | None = None
         self._actor_callers: dict[str, dict] = {}
@@ -489,7 +572,8 @@ class CoreWorker:
             connect_timeout_s=self.config.rpc_connect_timeout_s,
             on_reconnect=self._raylet_reattach)
         await self.raylet.call("RegisterWorker", {
-            "worker_id": self.worker_id, "host": host, "port": port})
+            "worker_id": self.worker_id, "host": host, "port": port,
+            "fp_port": self.fp_port})
         if not self.is_driver:
             self.raylet.on_close(
                 lambda: (not self._shutdown) and os._exit(1))
@@ -530,6 +614,16 @@ class CoreWorker:
             pass
         self.loop.call_soon_threadsafe(self.loop.stop)
         self._loop_thread.join(timeout=2)
+        # Native pumps go after the loop stops (the reader was removed in
+        # _async_shutdown; destroy wakes any exec thread still blocked in
+        # next() — the C side keeps the handle's sync primitives alive).
+        for pump in (self._fp_exec_pump, self._fp_sub_pump):
+            if pump is not None:
+                try:
+                    pump.close()
+                except Exception:
+                    pass
+        self._fp_exec_pump = self._fp_sub_pump = None
         self._drain_and_close_loop()
         try:
             self.store.close()
@@ -562,6 +656,11 @@ class CoreWorker:
             pass
 
     async def _async_shutdown(self):
+        if self._fp_sub_pump is not None:
+            try:
+                self.loop.remove_reader(self._fp_sub_pump.eventfd)
+            except Exception:
+                pass
         if self.is_driver and self.gcs and not self.gcs.closed:
             try:
                 await self.gcs.call("FinishJob", {"job_id": self.job_id}, timeout=2)
@@ -1273,7 +1372,7 @@ class CoreWorker:
         flapped (driver-only: pool workers run with grace 0 and exit)."""
         await conn.call("RegisterWorker", {
             "worker_id": self.worker_id, "host": self.address.host,
-            "port": self.address.port})
+            "port": self.address.port, "fp_port": self.fp_port})
         logger.info("reconnected to raylet")
 
     # ---------- ref counting ----------
@@ -1949,6 +2048,22 @@ class CoreWorker:
                     conn.handlers["TaskYield"] = self._handle_task_yield
                     conn.on_close(functools.partial(
                         self._on_slot_conn_closed, slot, shape))
+                    fp_port = resp.get("worker_fp_port") or 0
+                    if fp_port and self._fp is not None:
+                        pump = self._ensure_sub_pump()
+                        if pump is not None:
+                            try:
+                                # connect() blocks in the kernel; a
+                                # remote host that died post-grant would
+                                # stall the whole IO loop through SYN
+                                # retransmits — keep it off-loop.
+                                slot.fp_id = await asyncio.get_running_loop(
+                                    ).run_in_executor(
+                                        None, pump.connect,
+                                        resp["worker_host"], fp_port)
+                                self._fp_slots[slot.fp_id] = (slot, shape)
+                            except OSError:
+                                slot.fp_id = None  # asyncio fallback
                     self._leases[shape].append(slot)
                     await self._on_slot_idle(slot, shape)
                     return
@@ -2051,6 +2166,94 @@ class CoreWorker:
             self._raylet_conns, (host, port), host, port,
             name="owner->raylet", kind="raylet")
 
+    # ---------- fastpath submitter plane ----------
+
+    def _ensure_sub_pump(self):
+        """Lazily create the outbound fastpath pump + hook its recv
+        eventfd into the IO loop (loop thread only)."""
+        if self._fp_sub_pump is None and self._fp is not None:
+            pump = self._fp.FastPump()
+            pump.arm_eventfd(True)
+            self.loop.add_reader(pump.eventfd, self._fp_drain_ready)
+            self._fp_sub_pump = pump
+        return self._fp_sub_pump
+
+    def _fp_drain_ready(self):
+        """recv eventfd became readable: batch-drain native events and
+        process them in ONE loop task (ordering: the pump FIFO preserves
+        per-socket frame order; processing is sequential)."""
+        try:
+            os.read(self._fp_sub_pump.eventfd, 8)
+        except (BlockingIOError, OSError, ValueError, AttributeError):
+            pass
+        # Drain to EMPTY: the eventfd was just zeroed, so any event left
+        # queued here would strand until unrelated future traffic.
+        while True:
+            evs = self._fp_sub_pump.drain(4096)
+            if not evs:
+                break
+            self._fp_backlog.extend(evs)
+        if not self._fp_processing and self._fp_backlog:
+            self._fp_processing = True
+            supervised_task(self._fp_process())
+
+    async def _fp_process(self):
+        from ray_tpu_torch._private.native_fastpath import EV_CLOSE, EV_FRAME
+        while True:
+            if not self._fp_backlog:
+                # No await between this check and the flag clear: the
+                # loop is single-threaded, so no event can be stranded.
+                self._fp_processing = False
+                return
+            batch, self._fp_backlog = self._fp_backlog, []
+            for kind, cid, payload in batch:
+                try:
+                    if kind == EV_FRAME:
+                        _mt, _seq, method, pl = rpc.unpack(payload)
+                        if method == "TaskDone":
+                            entry = self._fp_slots.get(cid)
+                            if entry is not None:
+                                await self._handle_task_done(
+                                    entry[0], entry[1], None, pl)
+                        elif method == "TasksReturned":
+                            entry = self._fp_slots.get(cid)
+                            if entry is not None:
+                                await self._handle_tasks_returned(
+                                    entry[0], entry[1], None, pl)
+                        elif method == "TaskYield":
+                            await self._handle_task_yield(None, pl)
+                    elif kind == EV_CLOSE:
+                        entry = self._fp_slots.pop(cid, None)
+                        if entry is not None:
+                            slot = entry[0]
+                            slot.fp_id = None
+                            self._on_slot_conn_closed(slot, entry[1])
+                            # Usually the worker died and the asyncio conn
+                            # is closing too; if only the fp socket died,
+                            # the lease must still be handed back and the
+                            # (possibly mid-batch) worker retired — its
+                            # tasks were just re-enqueued elsewhere.
+                            if not slot.conn.closed:
+                                try:
+                                    await slot.raylet.call(
+                                        "ReturnWorker",
+                                        {"lease_id": slot.lease_id,
+                                         "kill": True}, timeout=5)
+                                except Exception:
+                                    pass
+                                await slot.conn.close()
+                except asyncio.CancelledError:
+                    raise
+                except Exception:
+                    logger.exception("fastpath event handling failed")
+
+    def _drop_slot_fp(self, slot) -> None:
+        if slot.fp_id is not None:
+            self._fp_slots.pop(slot.fp_id, None)
+            if self._fp_sub_pump is not None:
+                self._fp_sub_pump.close_conn(slot.fp_id)
+            slot.fp_id = None
+
     async def _on_slot_idle(self, slot: _LeaseSlot, shape: str):
         if slot.outstanding or slot.conn.closed:
             # A concurrent TaskDone handler already refilled this slot
@@ -2075,6 +2278,7 @@ class CoreWorker:
                                        {"lease_id": slot.lease_id})
             except Exception:
                 pass
+            self._drop_slot_fp(slot)
             await slot.conn.close()
             if first is not None:
                 await self._pump_queue(shape, first.spec)
@@ -2096,6 +2300,7 @@ class CoreWorker:
                 await slot.raylet.call("ReturnWorker", {"lease_id": slot.lease_id})
             except Exception:
                 pass
+            self._drop_slot_fp(slot)
             await slot.conn.close()
 
     async def _push_tasks(self, slot: _LeaseSlot, pts: list, shape: str):
@@ -2136,6 +2341,39 @@ class CoreWorker:
                                         ts=granted)
             self._record_task_event(tid, name, "DISPATCHED", ts=now,
                                     target_node=slot.node_id)
+        if slot.fp_id is not None and self._fp_sub_pump is not None:
+            frame = rpc.pack([rpc.MSG_NOTIFY, 0, "PushTaskBatch",
+                              {"specs": [pt.spec.to_wire() for pt in pts]}])
+            if self._fp_sub_pump.send(slot.fp_id, frame):
+                return
+            # fp conn gone mid-lease: NOT silently degraded to the asyncio
+            # channel — earlier fp batches may still be queued worker-side
+            # and a later asyncio push could overtake them, inverting
+            # producer-before-consumer order within this worker's single
+            # exec thread (dependency-chain deadlock). Treat it like the
+            # connection loss it almost certainly is: retire the slot,
+            # give the lease back (kill: the worker may still be running
+            # half a batch we are about to retry elsewhere), and
+            # fail/retry the tasks.
+            self._drop_slot_fp(slot)
+            for pt in pts:
+                slot.outstanding.pop(pt.spec.task_id, None)
+            if slot in self._leases[shape]:
+                self._leases[shape].remove(slot)
+
+            async def give_back(slot=slot):
+                try:
+                    await slot.raylet.call(
+                        "ReturnWorker",
+                        {"lease_id": slot.lease_id, "kill": True})
+                except Exception:
+                    pass
+                await slot.conn.close()
+            supervised_task(give_back())
+            for pt in pts:
+                await self._handle_worker_failure(
+                    pt, shape, "fastpath connection lost")
+            return
         try:
             await slot.conn.notify(
                 "PushTaskBatch",
@@ -2176,6 +2414,7 @@ class CoreWorker:
     def _on_slot_conn_closed(self, slot: _LeaseSlot, shape: str):
         """Worker connection died: drop the slot (idle or not) and
         fail/retry everything still pushed."""
+        self._drop_slot_fp(slot)
         if slot in self._leases[shape]:
             self._leases[shape].remove(slot)
         if self._shutdown or not slot.outstanding:
@@ -2767,6 +3006,7 @@ class CoreWorker:
                     "worker": s.worker_id[:8], "busy": s.busy,
                     "outstanding": [p.spec.name for p in
                                     s.outstanding.values()],
+                    "fp": s.fp_id is not None,
                     "conn_closed": s.conn.closed})
         return out
 
@@ -2789,7 +3029,8 @@ class CoreWorker:
                 "actor_id": self._actor_id, "threads": out}
 
     def _run_exec_item(self, item) -> None:
-        """Execute one queued item from the execution queue."""
+        """Execute one queued item (shared by the asyncio-fed queue path
+        and fastpath injection)."""
         spec, sink = item[0], item[1]
         if isinstance(spec, list):  # batch item: sink is the owner conn
             def emit(task_id, index, entry, conn=sink):
@@ -2807,7 +3048,8 @@ class CoreWorker:
             remaining = _collections.deque(spec)
 
             def return_unstarted(conn=sink, remaining=remaining):
-                # A blocking task hands its unstarted batch-mates back.
+                # See the fastpath twin in _fp_exec_frame: a blocking
+                # task hands its unstarted batch-mates back.
                 ids = [s.task_id for s in remaining]
                 remaining.clear()
                 if ids:
@@ -2844,12 +3086,23 @@ class CoreWorker:
                 f.set_result(r))
 
     def _exec_enqueue(self, item) -> None:
-        """Hand an exec item to the execution thread(s)."""
-        self._exec_queue.put(item)
+        """Hand an exec item to the execution thread(s): fastpath
+        injection when the native pump runs the task loop, else the
+        plain queue."""
+        pump = self._fp_exec_pump
+        if pump is not None:
+            with self._inject_lock:
+                token = next(self._inject_token)
+                self._inject_items[token] = item
+            pump.inject(token)
+        else:
+            self._exec_queue.put(item)
 
     def execution_loop(self):
         """Main thread of a pool worker: executes tasks sequentially
         (reference: _raylet.pyx:3044 run_task_loop)."""
+        if self._fp_exec_pump is not None:
+            return self._execution_loop_fastpath(self._fp_exec_pump)
         while not self._shutdown:
             try:
                 item = self._exec_queue.get(timeout=0.5)
@@ -2859,8 +3112,118 @@ class CoreWorker:
                 break
             self._run_exec_item(item)
 
+    def _execution_loop_fastpath(self, pump):
+        """Native task loop: block in C (GIL released) for the next
+        event — an inbound PushTaskBatch frame from an owner's fastpath
+        socket, or an injected loop-side item (actor calls, assigns).
+        Completions coalesce into TaskDone frames (flushed at batch end,
+        every 64 results, once the task running after them has taken
+        FP_HOLD_S (_HeldDoneWatch), and — the deadlock-safe rule —
+        whenever THIS exec thread is about to block in get()/wait(),
+        since a task consuming an earlier buffered result in the same
+        batch is the only way a held completion could stall progress;
+        see get()).
+        Yields go immediately; the socket FIFO is the ordering guarantee
+        (reference: the worker main loop in _raylet.pyx:3044 runs inside
+        the C++ CoreWorker the same way)."""
+        from ray_tpu_torch._private.native_fastpath import EV_FRAME, EV_INJECT
+        while not self._shutdown:
+            ev = pump.next(0.5)
+            if ev is None:
+                continue
+            kind, cid, payload = ev
+            if kind == EV_FRAME:
+                try:
+                    self._fp_exec_frame(pump, cid, payload)
+                except Exception:
+                    # Must not escape: this is the worker's only task
+                    # loop — an owner bug (malformed spec) would
+                    # otherwise kill it silently with sockets left open.
+                    logger.exception("fastpath: frame handling failed")
+            elif kind == EV_INJECT:
+                with self._inject_lock:
+                    item = self._inject_items.pop(cid, None)
+                if item is None:
+                    continue
+                self._run_exec_item(item)
             # EV_ACCEPT / EV_CLOSE: connection registry lives in C; the
             # owner side drives retries, nothing to do here.
+
+    def _fp_exec_frame(self, pump, cid, payload):
+        """Handle one inbound fastpath frame on the exec thread."""
+        _mt, _seq, method, pl = rpc.unpack(payload)
+        if method != "PushTaskBatch":
+            logger.warning("fastpath: unexpected method %r", method)
+            return
+        buffered: list = []
+        # The held-completion watch flushes from its own thread: every
+        # send on this conn and every change to `buffered` is under it.
+        lock = threading.Lock()
+
+        def send_held(cid=cid, buffered=buffered):
+            if buffered:
+                pump.send(cid, rpc.pack(
+                    [rpc.MSG_NOTIFY, 0, "TaskDone",
+                     {"results": buffered}]))
+                buffered.clear()
+
+        def flush(lock=lock, send_held=send_held):
+            with lock:
+                send_held()
+
+        def emit(task_id, index, entry, cid=cid, lock=lock,
+                 send_held=send_held):
+            # A yield must not overtake completions of
+            # EARLIER tasks buffered on this conn.
+            with lock:
+                send_held()
+                pump.send(cid, rpc.pack(
+                    [rpc.MSG_NOTIFY, 0, "TaskYield",
+                     {"task_id": task_id, "index": index,
+                      "result": entry}]))
+
+        self._exec_tls.fp_flush = flush
+        # Remaining-specs deque: if the RUNNING task blocks in get(),
+        # the unstarted rest of this batch is handed BACK to the owner
+        # (get() calls batch_return) — a blocked task must not serialize
+        # its batch-mates behind it (nested fan-outs deadlock otherwise:
+        # the mate's subtree is what the blocked task waits for, at
+        # sufficient depth).
+        remaining = _collections.deque(pl["specs"])
+
+        def return_unstarted(pump=pump, cid=cid, remaining=remaining,
+                             lock=lock, send_held=send_held):
+            ids = []
+            while remaining:
+                # task_id is wire element 0 (TaskSpec.to_wire) — no need
+                # to materialize the full spec on this latency-critical
+                # about-to-block path.
+                ids.append(remaining.popleft()[0])
+            if ids:
+                with lock:
+                    send_held()  # completions of earlier batch-mates first
+                    pump.send(cid, rpc.pack(
+                        [rpc.MSG_NOTIFY, 0, "TasksReturned",
+                         {"task_ids": ids}]))
+
+        self._exec_tls.batch_return = return_unstarted
+        watch = self._fp_held_watch
+        try:
+            while remaining:
+                s = TaskSpec.from_wire(remaining.popleft())
+                watch.hold(flush if buffered else None)
+                try:
+                    result = self._execute_task(s, emit)
+                finally:
+                    watch.hold(None)
+                with lock:
+                    buffered.append([s.task_id, result])
+                    if len(buffered) >= 64:
+                        send_held()
+        finally:
+            self._exec_tls.batch_return = None
+            self._exec_tls.fp_flush = None
+            flush()
 
     def _start_actor_concurrency(self, max_concurrency: int) -> None:
         """Spawn extra execution threads so up to max_concurrency actor

@@ -211,7 +211,16 @@ def test_import_loads_no_jax_and_no_cuda():
         "ray_tpu_torch.util.actor_pool, ray_tpu_torch.util.queue, "
         "ray_tpu_torch.util.multiprocessing, ray_tpu_torch.tune, "
         "ray_tpu_torch.tune.search, ray_tpu_torch.tune.schedulers, "
-        "ray_tpu_torch.tune.tuner\n"
+        "ray_tpu_torch.tune.tuner, ray_tpu_torch._private.native_policy, "
+        "ray_tpu_torch._private.native_scheduler, "
+        "ray_tpu_torch._private.native_raylet_core, "
+        "ray_tpu_torch._private.native_gcs_store, "
+        "ray_tpu_torch._private.native_gcs_service, "
+        "ray_tpu_torch._private.native_fastpath, "
+        "ray_tpu_torch._private.fast_rpc, "
+        "ray_tpu_torch._private.native_actor_plane, "
+        "ray_tpu_torch._private.native_lease_plane, "
+        "ray_tpu_torch._private.native_transfer\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                  'orbax', 'ray_tpu', 'msgpack',\n"
